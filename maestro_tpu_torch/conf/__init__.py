@@ -1,0 +1,39 @@
+"""Configuration layer: typed dataclasses + derived static shape state."""
+
+from maestro_tpu_torch.conf.core import (
+    ExperimentConfig,
+    MaskConfig,
+    ModelConfig,
+    TrainerConfig,
+)
+from maestro_tpu_torch.conf.dataset.base import (
+    DatasetConfig,
+    InputRasterConfig,
+    PatchSizeConfig,
+    RasterConfig,
+    TargetConfig,
+    TargetRasterConfig,
+)
+from maestro_tpu_torch.conf.dataset.flair import FLAIRConfig
+from maestro_tpu_torch.conf.dataset.pastis_hd import PASTISHDConfig
+from maestro_tpu_torch.conf.dataset.s2_naip import S2NAIPConfig
+from maestro_tpu_torch.conf.dataset.treesatai_ts import TreeSatAITSConfig
+from maestro_tpu_torch.conf.datasets import DatasetsConfig
+
+__all__ = [
+    "DatasetConfig",
+    "DatasetsConfig",
+    "ExperimentConfig",
+    "FLAIRConfig",
+    "InputRasterConfig",
+    "MaskConfig",
+    "ModelConfig",
+    "PASTISHDConfig",
+    "PatchSizeConfig",
+    "RasterConfig",
+    "S2NAIPConfig",
+    "TargetConfig",
+    "TargetRasterConfig",
+    "TrainerConfig",
+    "TreeSatAITSConfig",
+]

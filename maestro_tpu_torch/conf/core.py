@@ -1,0 +1,68 @@
+"""Mask / model / trainer configs read by the ported model stack.
+
+Field names and defaults follow the JAX package's ``conf/core.py`` (which
+mirrors the reference config groups mask.py, model.py, trainer.py).  Only the
+groups and fields that ported code reads are kept: the run, optimizer and
+data-pipeline groups arrive with the training slices that consume them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+@dataclass
+class MaskConfig:
+    """Random + structured masking probabilities (reference conf/mask.py)."""
+
+    mask_ratio: float = 0.75
+    mask_scale: float = 0.0
+    mask_mod: float | None = 0.25
+    mask_bands: float | None = None
+    mask_dates: float | None = 0.25
+    mask_loc: float | None = 0.25
+
+
+@dataclass
+class ModelConfig:
+    """Model options (reference conf/model.py:8-19).
+
+    ``model`` selects the flagship MAE ("mae") or a baseline FM adapter
+    ("dinov2" / "dofa" / "croma" / "satmae" / "prithvi"); only the MAE is
+    ported so far.
+    """
+
+    interpolate: str = "nearest"
+    fusion_mode: str = "group"
+    inter_depth: int = 3  # number of shared inter-modality trunk blocks
+    model: str = "mae"
+    model_size: str = "tiny"
+    type_head: str = "attentive"
+    use_date_enc: bool = True
+    # attention head-split overrides (None = arch defaults with 128-dim
+    # heads; set the reference splits — encoder 12 x 64 for medium, decoder
+    # 16 x 32 — when loading ported reference checkpoints)
+    encoder_heads: int | None = None
+    encoder_dim_head: int | None = None
+    decoder_heads: int | None = None
+    decoder_dim_head: int | None = None
+    # ref-grid rows per segmentation-head chunk (larger chunks mean fewer,
+    # bigger launches but more live memory per chunk)
+    seg_chunk_rows: int = 2
+
+
+@dataclass
+class TrainerConfig:
+    """Execution config: precision policy."""
+
+    # compute dtype for matmuls/activations; params stay fp32
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass
+class ExperimentConfig:
+    """The config groups the ported entry points read."""
+
+    mask: MaskConfig = field(default_factory=MaskConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    trainer: TrainerConfig = field(default_factory=TrainerConfig)
