@@ -32,17 +32,25 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+HEAD_START_CYCLES = 10_000_000  # device spin before timed launches, 5-6 ms at 1.7-2 GHz
 
-ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # abs + rel, vs plain
-POOL_TOL = {torch.bfloat16: 2e-2, torch.float32: 3e-2}  # fp32 x: bf16 matmul operands
+# Kernel vs plain version: |got - want| <= tol * (|want| + rms(want)) per element,
+# so the tolerance follows the data (attention outputs shrink as sqrt(1/L)).
+BF16_ULP = 2.0**-7
+ATTN_TOL = {torch.bfloat16: 4 * BF16_ULP, torch.float32: 1e-4}
+POOL_TOL = {torch.bfloat16: 4 * BF16_ULP, torch.float32: 0.1}  # fp32 x: bf16 matmul operands
 POOL_STATS_TOL = {torch.bfloat16: 1e-3, torch.float32: 5e-2}
 # kernel path vs plain path through 12 bf16 blocks, relative to max |logit|
-LOGITS_REL_TOL = 0.1
+# (about 3x the 0.0077 this comparison reads on an H100)
+LOGITS_REL_TOL = 0.025
 ARGMAX_AGREE_MIN = 0.97
 
 ATTN_CHECK_LENGTHS = (50, 200, 256, 400, 1024, 1880)
 ATTN_CHECK_HEADS = ((6, 128), (12, 64), (3, 64), (16, 32), (8, 96))
-POOL_CHECK_SHAPES = ((8, 26, 64, 768), (8, 26, 128, 768), (2, 2, 40, 128))
+ATTN_CHECK_BATCH = {(6, 128): 8}  # the serving path's heads at its largest batch; else 2
+# head dims 96, 96, 16, 48, 128: every one attn_pool.cu is built for
+POOL_CHECK_SHAPES = ((8, 26, 64, 768), (8, 26, 128, 768), (2, 2, 40, 128),
+                     (2, 5, 64, 384), (2, 3, 40, 1024))
 POOL_HEADS = 8
 REQUEST_BATCHES = (1, 4, 8)
 ATTN_PER_REQUEST = 39  # 4 streams x 9 blocks + 3 trunk blocks
@@ -54,22 +62,28 @@ def emit(obj: dict) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+    """Median device time of one call of ``fn``: a CUDA event pair around each
+    of ``iters`` calls.  The device first spins for a few milliseconds, so the
+    host has queued every call before the first runs and its launch rate
+    stays out of the times of short kernels."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(iters)]
+    torch.cuda._sleep(HEAD_START_CYCLES)
+    for start, end in pairs:
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return statistics.median(start.elapsed_time(end) for start, end in pairs)
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
                 tol: float) -> tuple[float, float]:
+    """Raise unless ``|got - want| <= tol * (|want| + rms(want))`` everywhere;
+    returns the largest absolute error and the largest error over its limit."""
     got, want = got.float(), want.float()
     if got.shape != want.shape:
         msg = f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}"
@@ -79,11 +93,13 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
         raise AssertionError(msg)
     diff = (got - want).abs()
     max_abs = diff.max().item()
-    max_rel = (diff / want.abs().clamp_min(1.0)).max().item()
-    if not bool((diff <= tol + tol * want.abs()).all()):
-        msg = f"{name}: max abs err {max_abs:.3e} exceeds tolerance {tol} (abs + rel)"
+    rms = want.square().mean().sqrt()
+    over = (diff / (tol * (want.abs() + rms))).max().item()
+    if not over <= 1.0:
+        msg = (f"{name}: error is {over:.2f} x its limit of {tol} * (|want| + rms), "
+               f"max abs err {max_abs:.3e}, rms(want) {rms.item():.3e}")
         raise AssertionError(msg)
-    return max_abs, max_rel
+    return max_abs, over
 
 
 def profile_requests(predict, batch, latency_ms: float, requests: int = 3) -> dict:
@@ -196,23 +212,26 @@ def main() -> None:
     attn_err = 0.0
     cases = 0
     for dtype in (torch.bfloat16, torch.float32):
-        worst = (0.0, 0.0, None)
         for l in ATTN_CHECK_LENGTHS:
+            worst = (0.0, 0.0, None)  # by error over its limit
             for h, d in ATTN_CHECK_HEADS:
-                q, k, v = qkv_views(2, l, h, d, dtype, gen)
+                b = ATTN_CHECK_BATCH.get((h, d), 2)
+                q, k, v = qkv_views(b, l, h, d, dtype, gen)
                 got = attention.mha_blhd(q, k, v, d**-0.5)
                 torch.cuda.synchronize()
                 want = attention.mha_blhd_plain(q, k, v, d**-0.5)
-                max_abs, max_rel = check_close(
+                max_abs, over = check_close(
                     f"attention L={l} H={h} D={d} {dtype}", got, want, ATTN_TOL[dtype])
+                del got, want
                 cases += 1
-                if max_abs > worst[0]:
-                    worst = (max_abs, max_rel, [2, l, h, d])
-        emit({"check": "flash_attention_fwd", "dtype": str(dtype), "layout": "strided qkv view",
-              "tolerance_abs_plus_rel": ATTN_TOL[dtype], "max_abs_err": worst[0],
-              "max_rel_err": worst[1], "worst_shape": worst[2]})
-        if dtype == torch.bfloat16:
-            attn_err = worst[0]
+                if over > worst[1]:
+                    worst = (max_abs, over, [b, l, h, d])
+                if dtype == torch.bfloat16:
+                    attn_err = max(attn_err, max_abs)
+            emit({"check": "flash_attention_fwd", "dtype": str(dtype), "L": l,
+                  "layout": "strided qkv view", "tolerance_x_abs_plus_rms": ATTN_TOL[dtype],
+                  "max_err_over_tolerance": worst[1], "max_abs_err": worst[0],
+                  "worst_shape": worst[2]})
     # contiguous q, k, v too
     q, k, v = (t.contiguous() for t in qkv_views(2, 400, 6, 128, torch.bfloat16, gen))
     check_close("attention contiguous", attention.mha_blhd(q, k, v, 128**-0.5),
@@ -228,12 +247,12 @@ def main() -> None:
             torch.cuda.synchronize()
             out_p, m_p, den_p = attn_pool.attentive_pool_plain(*args, POOL_HEADS)
             name = f"pool {shape} {dtype}"
-            max_abs, max_rel = check_close(name + " out", out, out_p, POOL_TOL[dtype])
+            max_abs, over = check_close(name + " out", out, out_p, POOL_TOL[dtype])
             m_err, _ = check_close(name + " m", m, m_p, POOL_STATS_TOL[dtype])
             den_err, _ = check_close(name + " den", den, den_p, POOL_STATS_TOL[dtype])
             emit({"check": "attentive_pool_fwd", "dtype": str(dtype), "shape": list(shape),
-                  "heads": POOL_HEADS, "tolerance_abs_plus_rel": POOL_TOL[dtype],
-                  "max_abs_err": max_abs, "max_rel_err": max_rel,
+                  "heads": POOL_HEADS, "tolerance_x_abs_plus_rms": POOL_TOL[dtype],
+                  "max_abs_err": max_abs, "max_err_over_tolerance": over,
                   "stats_tolerance": POOL_STATS_TOL[dtype], "m_max_abs_err": m_err,
                   "den_max_abs_err": den_err})
             if dtype == torch.bfloat16 and shape == POOL_CHECK_SHAPES[0]:

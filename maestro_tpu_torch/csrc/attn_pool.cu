@@ -25,8 +25,8 @@
 // two-stage cp.async buffer in 64-column chunks, the next chunk loading while
 // this one is multiplied.
 //
-// A block has 64 rows when that many blocks fill the card, else 32 rows: the
-// serving path's [8, 26, 64, 768] launch has only 512 rows.
+// A block has 32 rows (two 16-row groups): the serving path's [8, 26, 64, 768]
+// launch has only 512 rows, and smaller blocks spread them over more SMs.
 //
 // Products run on the tensor cores with bf16 operands and fp32 accumulation
 // for both input dtypes (fp32 x is normalized in fp32 and rounded to bf16 only
@@ -44,6 +44,7 @@ namespace {
 constexpr int kKC = 64;      // W_kv columns (reduction dim) per shared-memory chunk
 constexpr int kPad = 8;      // bf16 padding of shared rows: rows 16 bytes apart mod 128
 constexpr int kMaxE = 1024;  // LayerNorm keeps a row in registers: 32 lanes x 4 x 8
+constexpr int kRG = 2;       // 16-row groups per block
 constexpr float kNegInit = -1e30f;
 
 __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
@@ -112,18 +113,18 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 template <int DH>
 constexpr int kColSplits = DH % 32 == 0 ? 2 : 1;
 
-template <int DH, int RG>
+template <int DH>
 size_t pool_smem_bytes(int E) {
-  return sizeof(__nv_bfloat16) * (static_cast<size_t>(16 * RG) * (E + kPad) +
+  return sizeof(__nv_bfloat16) * (static_cast<size_t>(16 * kRG) * (E + kPad) +
                                   2 * static_cast<size_t>(2 * DH) * (kKC + kPad)) +
-         sizeof(float) * 16 * RG * kColSplits<DH>;
+         sizeof(float) * 16 * kRG * kColSplits<DH>;
 }
 
 // T: dtype of x and out.  DH: head dim (E / heads), a multiple of 16.
-// RG: 16-row groups per block.  Each group has NH k-warps and NH v-warps
-// (NH = kColSplits<DH>), so a block has 2 * NH * RG warps.
-template <typename T, int DH, int RG>
-__global__ void __launch_bounds__(RG * 64 * kColSplits<DH>)
+// Each of the block's kRG 16-row groups has NH k-warps and NH v-warps
+// (NH = kColSplits<DH>), so a block has 2 * NH * kRG warps.
+template <typename T, int DH>
+__global__ void __launch_bounds__(kRG * 64 * kColSplits<DH>)
 attn_pool_fwd(const T* __restrict__ x, const float* __restrict__ ln_scale,
               const float* __restrict__ ln_bias, const __nv_bfloat16* __restrict__ w_kv,
               const float* __restrict__ query, T* __restrict__ out, float* __restrict__ m_out,
@@ -132,8 +133,8 @@ attn_pool_fwd(const T* __restrict__ x, const float* __restrict__ ln_scale,
   constexpr int NH = kColSplits<DH>;
   constexpr int DW = DH / NH;            // columns of this warp
   constexpr int NT = DW / 8;             // n-tiles of this warp
-  constexpr int ROWS = 16 * RG;          // (batch, position) rows per block
-  constexpr int WARPS = 2 * NH * RG;
+  constexpr int ROWS = 16 * kRG;         // (batch, position) rows per block
+  constexpr int WARPS = 2 * NH * kRG;
   constexpr int THREADS = WARPS * 32;
   constexpr int LN_ROWS = ROWS / WARPS;  // rows each warp normalizes per date
   constexpr int WLD = kKC + kPad;        // shared row stride of a W chunk
@@ -151,9 +152,9 @@ attn_pool_fwd(const T* __restrict__ x, const float* __restrict__ ln_scale,
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int group = warp % RG;                 // 16-row group of this warp
-  const bool v_role = (warp / RG) % 2 == 1;    // k columns or v columns
-  const int half = warp / (2 * RG);            // which DW-column slice of the head
+  const int group = warp % kRG;                // 16-row group of this warp
+  const bool v_role = (warp / kRG) % 2 == 1;   // k columns or v columns
+  const int half = warp / (2 * kRG);           // which DW-column slice of the head
   const int head = blockIdx.y;
   const long long n_rows = (long long)B * L;
   const long long tile_row0 = (long long)blockIdx.x * ROWS;
@@ -371,43 +372,30 @@ struct PoolArgs {
   cudaStream_t stream;
 };
 
-template <typename T, int DH, int RG>
+template <typename T, int DH>
 int launch(const PoolArgs& a) {
-  const size_t smem = pool_smem_bytes<DH, RG>(a.E);
-  auto kernel = attn_pool_fwd<T, DH, RG>;
+  const size_t smem = pool_smem_bytes<DH>(a.E);
+  auto kernel = attn_pool_fwd<T, DH>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_rows = (long long)a.B * a.L;
-  dim3 grid(static_cast<unsigned>((n_rows + 16 * RG - 1) / (16 * RG)), a.H);
+  dim3 grid(static_cast<unsigned>((n_rows + 16 * kRG - 1) / (16 * kRG)), a.H);
   const float sm_scale = 1.0f / sqrtf(static_cast<float>(DH));
-  kernel<<<grid, RG * 64 * kColSplits<DH>, smem, a.stream>>>(
+  kernel<<<grid, kRG * 64 * kColSplits<DH>, smem, a.stream>>>(
       static_cast<const T*>(a.x), a.ln_scale, a.ln_bias,
       static_cast<const __nv_bfloat16*>(a.w_kv), a.query, static_cast<T*>(a.out), a.m_out,
       a.den_out, a.B, a.D, a.L, a.E, a.H, a.eps, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// 64-row blocks when they fill the card's SMs, else 32-row blocks
-template <typename T, int DH>
-int launch_rows(const PoolArgs& a) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long blocks64 = (((long long)a.B * a.L + 63) / 64) * a.H;
-  return blocks64 >= sms ? launch<T, DH, 4>(a) : launch<T, DH, 2>(a);
-}
-
 template <typename T>
 int dispatch(int dh, const PoolArgs& a) {
   switch (dh) {
-    case 16: return launch_rows<T, 16>(a);
-    case 32: return launch_rows<T, 32>(a);
-    case 48: return launch_rows<T, 48>(a);
-    case 64: return launch_rows<T, 64>(a);
-    case 96: return launch_rows<T, 96>(a);
-    case 128: return launch_rows<T, 128>(a);
+    case 16: return launch<T, 16>(a);
+    case 48: return launch<T, 48>(a);
+    case 96: return launch<T, 96>(a);
+    case 128: return launch<T, 128>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

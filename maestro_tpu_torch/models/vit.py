@@ -152,6 +152,19 @@ class AttentiveReduce(nn.Module):
         init_linear(self.to_kv, generator)
         self.query = normal_parameter((dim,), generator, device)
         self.norm_fc = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self._kv_bf16: tuple[tuple[int, int], torch.Tensor] | None = None
+
+    def _kv_weight(self, x: torch.Tensor) -> torch.Tensor:
+        """``to_kv.weight`` as the fused pool takes it: on the card, where the
+        kernel multiplies in bf16, a bf16 copy kept until the weight changes
+        (one cast, not one per chunk of every request)."""
+        w = self.to_kv.weight
+        if not x.is_cuda:
+            return w
+        key = (w._version, w.data_ptr())
+        if self._kv_bf16 is None or self._kv_bf16[0] != key:
+            self._kv_bf16 = (key, w.detach().to(torch.bfloat16))
+        return self._kv_bf16[1]
 
     def _use_fused_pool(self, x: torch.Tensor) -> bool:
         """The fused pool serves the many-position date reduction; its tiling
@@ -173,7 +186,7 @@ class AttentiveReduce(nn.Module):
         if self._use_fused_pool(x):
             out, _, _ = attentive_pool(
                 x.to(self.dtype), self.norm.weight, self.norm.bias,
-                self.to_kv.weight, self.query, self.heads, LN_EPS,
+                self._kv_weight(x), self.query, self.heads, LN_EPS,
             )
             return layer_norm(out, self.norm_fc, self.dtype)
 

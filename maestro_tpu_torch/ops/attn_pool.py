@@ -22,8 +22,8 @@ block, x is read and out written once, and the per-head logit is a register dot
 product with a 4-thread shuffle in place of the TPU kernel's selector matmuls.
 Per 16-row group, k-warps multiply the k columns into partial logits and
 v-warps multiply the v columns and pool (two warps of each kind when dh is a
-multiple of 32); W_kv streams through a two-stage ``cp.async`` buffer.  Blocks
-have 64 rows, or 32 when 64-row blocks would not fill the card.
+multiple of 32); W_kv streams through a two-stage ``cp.async`` buffer.  A
+block has 32 rows, so that the serving path's 512 rows spread over the SMs.
 
 Precision: LayerNorm statistics, logits, softmax and the pooled sum are fp32;
 the kv projection runs on the tensor cores with bf16 operands (LN(x) and
@@ -39,7 +39,8 @@ import ctypes
 
 import torch
 
-SUPPORTED_HEAD_DIMS = (16, 32, 48, 64, 96, 128)
+# 8 heads at E = 128, 384 (small), 768 (medium, base), 1024 (large)
+SUPPORTED_HEAD_DIMS = (16, 48, 96, 128)
 MAX_EMBED_DIM = 1024
 
 launch_count = 0  # incremented once per kernel launch, nowhere else
@@ -108,7 +109,10 @@ def attentive_pool(
     eps: float = 1e-5,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``[B, D, L, E] -> out [B, L, E]`` plus the softmax statistics
-    ``m, den [B, L, H]`` (fp32) that a backward pass needs."""
+    ``m, den [B, L, H]`` (fp32) that a backward pass needs.
+
+    On the card ``w_kv`` is multiplied as bf16: a caller that keeps a bf16
+    copy saves the cast on every launch."""
     global launch_count
     if x.ndim != 4:
         msg = f"x must be [B, D, L, E], got {tuple(x.shape)}"

@@ -181,9 +181,8 @@ def test_bridge_transposes_dense_kernels(treesat):
     np.testing.assert_array_equal(to_np(model.mask_tokens["s1_asc"]), token)
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the default device works here")
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ds = DatasetsConfig(name_dataset="treesatai_ts")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(ds, MaskConfig(), _micro_cfg(ModelConfig))
