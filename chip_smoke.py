@@ -1,15 +1,20 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (built for H100).
 
     python3 chip_smoke.py            # what the checks need
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown of requests
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns of requests and steps
 
 Builds the hand-written CUDA kernels from ``maestro_tpu_torch/csrc``, holds
-each against its plain PyTorch version on the card, then drives the port's
-serving path — ``build_model`` (MAE medium, FLAIR-HUB plan, group fusion,
-3 trunk blocks, bf16) and ``serve.make_predict_fn(model, "finetune")`` — for
-requests of batch 1, 4 and 8 with seeded random weights and inputs, and checks
-launch counts, shapes, finiteness and agreement with the same model run
-through the plain versions.
+each against its plain PyTorch version on the card, then drives the port's two
+main paths with seeded random weights and inputs (MAE medium, FLAIR-HUB plan,
+group fusion, 3 trunk blocks, bf16 compute, fp32 parameters):
+
+* serving — ``serve.make_predict_fn(model, "finetune")`` for requests of batch
+  1, 4 and 8: launch counts, shapes, finiteness and agreement with the same
+  model run through the plain versions;
+* pretraining — ``train.steps.make_pretrain_step`` (token-space l1_norm loss,
+  AdamW with the closed-form OneCycle schedule): three steps at batch 8
+  through the kernels and through the plain versions from the same weights
+  and masks, with launch counts per step; then timed steps at batch 48.
 
 Output: one JSON object per line.  The second-to-last line is the
 ``{"kernels": [...]}`` record, the last line
@@ -21,6 +26,7 @@ printed.  Without a CUDA device the script exits 1 at once.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -28,26 +34,52 @@ import time
 
 import torch
 
-# published dense peaks of one H100 SXM (NVIDIA data sheet)
+# published dense peaks of one H100 SXM (NVIDIA data sheet), for the kernel bounds
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# dense bf16 peak by the name nvidia-smi gives, for the train step's MFU
+BF16_PEAK_BY_NAME = {"H100 80GB HBM3": 989e12, "H100 SXM": 989e12, "H100 NVL": 835e12,
+                     "H100 PCIe": 756e12}
 HEAD_START_CYCLES = 10_000_000  # device spin before timed launches, 5-6 ms at 1.7-2 GHz
 
 # Kernel vs plain version: |got - want| <= tol * (|want| + rms(want)) per element,
 # so the tolerance follows the data (attention outputs shrink as sqrt(1/L)).
 BF16_ULP = 2.0**-7
 ATTN_TOL = {torch.bfloat16: 4 * BF16_ULP, torch.float32: 1e-4}
+# backward (bf16 in, P and dS rounded to bf16 as operands) vs fp32 autograd of
+# the plain version on the same inputs: the forward's tolerance (0.57 of it is
+# the most an H100 read over the pretrain shapes)
+ATTN_BWD_TOL = ATTN_TOL
+LSE_ABS_TOL = 1e-3
 POOL_TOL = {torch.bfloat16: 4 * BF16_ULP, torch.float32: 0.1}  # fp32 x: bf16 matmul operands
 POOL_STATS_TOL = {torch.bfloat16: 1e-3, torch.float32: 5e-2}
+# fused loss: sums differ from the plain version by summation order only
+LOSS_SUM_RTOL = 1e-4
+# d_rec of l2: one rounding to r's dtype; l1: +-g*m, a sign flips only where
+# t_norm - r rounds to about 0, allowed for at most this share of elements
+LOSS_GRAD_TOL = {torch.bfloat16: 2 * BF16_ULP, torch.float32: 1e-5}
+LOSS_SIGN_FLIP_SHARE = 1e-5
 # kernel path vs plain path through 12 bf16 blocks, relative to max |logit|
 # (about 3x the 0.0077 this comparison reads on an H100)
 LOGITS_REL_TOL = 0.025
 ARGMAX_AGREE_MIN = 0.97
+# train steps, kernel path vs plain path (bf16 both): loss per step, and the
+# relative norm |p1 - p0| / |p0| of the update of step 1
+STEP_LOSS_RTOL = 1e-3  # an H100 read 3.4e-6
+STEP_UPDATE_RTOL = 0.05
 
 ATTN_CHECK_LENGTHS = (50, 200, 256, 400, 1024, 1880)
 ATTN_CHECK_HEADS = ((6, 128), (12, 64), (3, 64), (16, 32), (8, 96))
 ATTN_CHECK_BATCH = {(6, 128): 8}  # the serving path's heads at its largest batch; else 2
+# the pretrain path's attention shapes at batch 8 (kept tokens 50..470 in the
+# encoders and the trunk, full lengths in the decoders), then the other head
+# dims and a length past 1536
+BWD_CHECK_SHAPES = (
+    [(8, l, 6, 128) for l in (50, 64, 100, 256, 470)]
+    + [(8, l, 4, 128) for l in (200, 256, 400, 1024)]
+    + [(2, 200, 12, 64), (2, 130, 16, 32), (2, 100, 8, 96), (2, 1600, 4, 128)]
+)
 # head dims 96, 96, 16, 48, 128: every one attn_pool.cu is built for
 POOL_CHECK_SHAPES = ((8, 26, 64, 768), (8, 26, 128, 768), (2, 2, 40, 128),
                      (2, 5, 64, 384), (2, 3, 40, 1024))
@@ -55,6 +87,11 @@ POOL_HEADS = 8
 REQUEST_BATCHES = (1, 4, 8)
 ATTN_PER_REQUEST = 39  # 4 streams x 9 blocks + 3 trunk blocks
 POOL_PER_REQUEST = 16  # ref grid 32 rows / seg_chunk_rows 2
+# per pretrain step: 4 x 9 encoder + 3 trunk + 4 x 3 decoder blocks; 5 modalities
+ATTN_PER_STEP = 51
+LOSS_PER_STEP = 5
+CHECK_BATCH, TRAIN_BATCHES = 8, (48, 32, 24, 16)
+WARMUP_STEPS, TIMED_STEPS = 2, 10
 
 
 def emit(obj: dict) -> None:
@@ -102,60 +139,95 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     return max_abs, over
 
 
-def profile_requests(predict, batch, latency_ms: float, requests: int = 3) -> dict:
-    """Device time by kernel name over a few requests (torch.profiler / CUPTI).
+def ptxas_spills(log: str) -> list[str]:
+    """``kernel: spill line`` for each kernel ``ptxas -v`` reports spilling."""
+    spills, kernel = [], None
+    for ln in log.splitlines():
+        if "Function properties for " in ln:
+            kernel = ln.split("Function properties for ")[1].strip()
+        elif "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            spills.append(f"{kernel}: {ln.strip()}")
+    return sorted(set(spills))
 
-    ``busy_ms_per_request`` is the sum of all kernels' device time; the idle
-    share is taken against ``latency_ms``, the request latency measured with
+
+def profile_device(run_once, latency_ms: float, calls: int = 3) -> dict:
+    """Device time by kernel name over a few calls of ``run_once``
+    (torch.profiler / CUPTI).
+
+    ``busy_ms_per_call`` is the sum of all kernels' device time; the idle
+    share is taken against ``latency_ms``, the call's latency measured with
     the profiler off (profiling itself slows the host).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    predict(batch)
+    run_once()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(requests):
-            predict(batch)
+        for _ in range(calls):
+            run_once()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / requests
-    # device-side events only: the CPU-side operator rows repeat their kernels' time
-    rows = [(e.key, e.self_device_time_total / 1e3 / requests, e.count / requests)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    # device-side events only: the CPU-side operator rows repeat their kernels'
+    # time, and so do the device spans of user annotations (Optimizer.step#...)
+    rows = [(e.key, e.self_device_time_total / 1e3 / calls, e.count / calls)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if busy == 0:
         return {"device_time": "not measured (the profiler saw no device activity)"}
     return {
-        "busy_ms_per_request": busy, "latency_ms_profiler_off": latency_ms,
-        "device_idle_share": 1.0 - busy / latency_ms, "wall_ms_per_request_profiled": wall_ms,
-        "device_events_per_request": sum(r[2] for r in rows),
-        "top": [{"name": r[0][:90], "ms_per_request": r[1], "calls_per_request": r[2]}
+        "busy_ms_per_call": busy, "latency_ms_profiler_off": latency_ms,
+        "device_idle_share": 1.0 - busy / latency_ms, "wall_ms_per_call_profiled": wall_ms,
+        "device_events_per_call": sum(r[2] for r in rows),
+        "top": [{"name": r[0][:90], "ms_per_call": r[1], "calls_per_call": r[2]}
                 for r in rows[:14]],
     }
 
 
 def qkv_views(b: int, l: int, h: int, d: int, dtype, gen) -> tuple[torch.Tensor, ...]:
     """q, k, v as strided views of one fused [B, L, 3*H*D] projection output."""
+    return qkv_fused(b, l, h, d, dtype, gen).unbind(dim=2)
+
+
+def qkv_fused(b: int, l: int, h: int, d: int, dtype, gen) -> torch.Tensor:
+    """One fused projection output viewed as [B, L, 3, H, D]."""
     qkv = torch.randn((b, l, 3 * h * d), generator=gen, device="cuda", dtype=torch.float32)
-    return qkv.to(dtype).view(b, l, 3, h, d).unbind(dim=2)
+    return qkv.to(dtype).view(b, l, 3, h, d)
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    """Least time (ms) for the work, and which of bytes and operations sets it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
 
 
 def attention_bound(b: int, l: int, h: int, d: int, dtype) -> tuple[float, str]:
-    nbytes = 4 * b * l * h * d * (2 if dtype == torch.bfloat16 else 4)
-    ops = 4 * b * h * l * l * d
+    size = 2 if dtype == torch.bfloat16 else 4
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+    return bound(4 * b * l * h * d * size, 4 * b * h * l * l * d, peak)
+
+
+def attention_bwd_bound(b: int, l: int, h: int, d: int, dtype) -> tuple[float, str]:
+    # reads q, k, v, o, dO and the fp32 lse; writes dq, dk, dv: five products
+    size = 2 if dtype == torch.bfloat16 else 4
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return bound(8 * b * l * h * d * size + 4 * b * h * l, 10 * b * h * l * l * d, peak)
+
+
+def loss_bound(n: int, f: int, size: int, backward: bool) -> tuple[float, str]:
+    # reads t, r and the fp32 row mask once; the forward writes two floats, the
+    # backward d_rec.  About 10 fp32 operations per element (three passes).
+    nbytes = 2 * n * f * size + 4 * n + (n * f * size if backward else 8)
+    return bound(nbytes, 10 * n * f, PEAK_FP32_FLOPS)
 
 
 def pool_bound(b: int, d: int, l: int, e: int, heads: int) -> tuple[float, str]:
     nbytes = b * d * l * e * 2 + b * l * e * 2 + 2 * b * l * heads * 4 + 2 * e * e * 2 + 3 * e * 4
-    ops = 4 * b * d * l * e * e
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_BF16_FLOPS
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+    return bound(nbytes, 4 * b * d * l * e * e, PEAK_BF16_FLOPS)
 
 
 def pool_inputs(shape, dtype, gen):
@@ -165,114 +237,150 @@ def pool_inputs(shape, dtype, gen):
     return x, 1.0 + 0.1 * rnd(e), 0.1 * rnd(e), rnd(2 * e, e) * e**-0.5, rnd(e)
 
 
-def main() -> None:
-    want_profile = "--profile" in sys.argv[1:]
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available; this script runs on the GPU only.",
-              file=sys.stderr)
-        sys.exit(1)
+def loss_inputs(n: int, f: int, dtype, gen):
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda", dtype=torch.float32)
+    t = (rnd(n, f) * 3.0 + 1.0).to(dtype)
+    r = rnd(n, f).to(dtype)
+    m = (torch.rand((n, 1), generator=gen, device="cuda") < 0.75).float()
+    return t, r, m
 
-    from maestro_tpu_torch.conf import DatasetsConfig, MaskConfig, ModelConfig
-    from maestro_tpu_torch.models import vit
-    from maestro_tpu_torch.models.mae import build_model
-    from maestro_tpu_torch.ops import attention, attn_pool, cuda_build
-    from maestro_tpu_torch.serve import make_predict_fn
-    from maestro_tpu_torch.utils.testing import make_synthetic_batch
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions in full fp32
-    t_start = time.perf_counter()
+def flair_loss_rows(plan, batch: int) -> dict[str, tuple[int, int, tuple]]:
+    """[N, F] and norm-group slices of each FLAIR modality's loss rows."""
+    rows = {}
+    for name, spec in plan.mod_specs.items():
+        p = spec.patch_size
+        slices, off = [], 0
+        for chans in spec.norm_groups:
+            slices.append((off * p * p, chans * p * p))
+            off += chans
+        rows[name] = (batch * spec.num_dates * spec.tokens_per_date,
+                      spec.num_channels * p * p, tuple(slices))
+    return rows
 
-    # ---- 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    emit({"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-          "python": sys.version.split()[0]})
 
-    # ---- 2. the build (both sources compiled in parallel at first use)
-    attention._kernel()
-    attn_pool._kernel()
-    log = str(cuda_build.build_info.get("log", ""))
-    emit({"build": {
-        "seconds": round(float(cuda_build.build_info["seconds"]), 2),
-        "directory": cuda_build.build_info["directory"],
-        "ptxas_spill_lines": sorted({
-            ln.strip() for ln in log.splitlines()
-            if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln}),
-        "max_registers": max((int(ln.split("Used ")[1].split(" registers")[0])
-                              for ln in log.splitlines() if "Used " in ln and " registers" in ln),
-                             default=None),
-    }})
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    # ---- 3a. attention kernel vs plain version
+def attention_fwd_checks(attention, gen) -> float:
+    """Forward kernel (and its logsumexp) vs plain; returns the bf16 max abs err."""
     attn_err = 0.0
     cases = 0
     for dtype in (torch.bfloat16, torch.float32):
         for l in ATTN_CHECK_LENGTHS:
             worst = (0.0, 0.0, None)  # by error over its limit
+            lse_err = 0.0
             for h, d in ATTN_CHECK_HEADS:
                 b = ATTN_CHECK_BATCH.get((h, d), 2)
                 q, k, v = qkv_views(b, l, h, d, dtype, gen)
                 got = attention.mha_blhd(q, k, v, d**-0.5)
+                _, lse = attention._fwd(q, k, v, d**-0.5, with_lse=True)
                 torch.cuda.synchronize()
                 want = attention.mha_blhd_plain(q, k, v, d**-0.5)
                 max_abs, over = check_close(
                     f"attention L={l} H={h} D={d} {dtype}", got, want, ATTN_TOL[dtype])
-                del got, want
+                lse_err = max(lse_err, (lse - attention.logsumexp_plain(q, k, d**-0.5))
+                              .abs().max().item())
+                del got, want, lse
                 cases += 1
                 if over > worst[1]:
                     worst = (max_abs, over, [b, l, h, d])
                 if dtype == torch.bfloat16:
                     attn_err = max(attn_err, max_abs)
+            if not lse_err <= LSE_ABS_TOL:
+                raise AssertionError(f"attention L={l} {dtype}: logsumexp off by {lse_err}")
             emit({"check": "flash_attention_fwd", "dtype": str(dtype), "L": l,
                   "layout": "strided qkv view", "tolerance_x_abs_plus_rms": ATTN_TOL[dtype],
                   "max_err_over_tolerance": worst[1], "max_abs_err": worst[0],
-                  "worst_shape": worst[2]})
+                  "worst_shape": worst[2], "lse_max_abs_err": lse_err,
+                  "lse_abs_tolerance": LSE_ABS_TOL})
     # contiguous q, k, v too
     q, k, v = (t.contiguous() for t in qkv_views(2, 400, 6, 128, torch.bfloat16, gen))
     check_close("attention contiguous", attention.mha_blhd(q, k, v, 128**-0.5),
                 attention.mha_blhd_plain(q, k, v, 128**-0.5), ATTN_TOL[torch.bfloat16])
     emit({"check": "flash_attention_fwd", "cases": cases + 1, "ok": True})
+    return attn_err
 
-    # ---- 3b. pool kernel vs plain version
-    pool_err = 0.0
+
+def attention_bwd_checks(attention, gen) -> float:
+    """Backward kernel vs autograd through the plain version in fp32, on the
+    same inputs; returns the bf16 max abs err over dq, dk, dv."""
+    bwd_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in POOL_CHECK_SHAPES:
-            args = pool_inputs(shape, dtype, gen)
-            out, m, den = attn_pool.attentive_pool(*args, POOL_HEADS)
+        for b, l, h, d in BWD_CHECK_SHAPES:
+            qkv = qkv_fused(b, l, h, d, dtype, gen).requires_grad_(True)
+            out = attention.mha_qkv(qkv, d**-0.5)
+            dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            (got,) = torch.autograd.grad(out, qkv, dout)
             torch.cuda.synchronize()
-            out_p, m_p, den_p = attn_pool.attentive_pool_plain(*args, POOL_HEADS)
-            name = f"pool {shape} {dtype}"
-            max_abs, over = check_close(name + " out", out, out_p, POOL_TOL[dtype])
-            m_err, _ = check_close(name + " m", m, m_p, POOL_STATS_TOL[dtype])
-            den_err, _ = check_close(name + " den", den, den_p, POOL_STATS_TOL[dtype])
-            emit({"check": "attentive_pool_fwd", "dtype": str(dtype), "shape": list(shape),
-                  "heads": POOL_HEADS, "tolerance_x_abs_plus_rms": POOL_TOL[dtype],
-                  "max_abs_err": max_abs, "max_err_over_tolerance": over,
-                  "stats_tolerance": POOL_STATS_TOL[dtype], "m_max_abs_err": m_err,
-                  "den_max_abs_err": den_err})
-            if dtype == torch.bfloat16 and shape == POOL_CHECK_SHAPES[0]:
-                pool_err = max_abs
+            ref_in = qkv.detach().float().requires_grad_(True)
+            ref = attention.mha_qkv_plain(ref_in, d**-0.5)
+            (want,) = torch.autograd.grad(ref, ref_in, dout.float())
+            row = {"check": "flash_attention_bwd", "dtype": str(dtype), "shape": [b, l, h, d],
+                   "layout": "strided qkv view, one [B, L, 3, H, D] gradient",
+                   "tolerance_x_abs_plus_rms": ATTN_BWD_TOL[dtype]}
+            for i, name in enumerate(("dq", "dk", "dv")):
+                max_abs, over = check_close(f"attention bwd {name} {[b, l, h, d]} {dtype}",
+                                            got[:, :, i], want[:, :, i], ATTN_BWD_TOL[dtype])
+                row[name] = {"max_abs_err": max_abs, "max_err_over_tolerance": over}
+                if dtype == torch.bfloat16:
+                    bwd_err = max(bwd_err, max_abs)
+            emit(row)
+            del qkv, out, dout, got, ref_in, ref, want
+    # separate q, k, v through mha_blhd: three gradients, views of one buffer
+    qkv = [t.contiguous().requires_grad_(True)
+           for t in qkv_views(2, 400, 6, 128, torch.bfloat16, gen)]
+    out = attention.mha_blhd(*qkv, 128**-0.5)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    got = torch.autograd.grad(out, qkv, dout)
+    ref_in = [t.detach().float().requires_grad_(True) for t in qkv]
+    want = torch.autograd.grad(attention.mha_blhd_plain(*ref_in, 128**-0.5), ref_in,
+                               dout.float())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check_close(f"attention bwd {name} separate q, k, v", g, w, ATTN_BWD_TOL[torch.bfloat16])
+    emit({"check": "flash_attention_bwd", "cases": 2 * len(BWD_CHECK_SHAPES) + 1, "ok": True})
+    return bwd_err
 
-    # ---- 4. the main path
-    datasets = DatasetsConfig(name_dataset="flair")
-    model_cfg = ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3)
-    model, plan = build_model(
-        datasets, MaskConfig(), model_cfg, dtype=torch.bfloat16, device="cuda",
-        generator=torch.Generator().manual_seed(0),
-    )
-    predict = make_predict_fn(model, "finetune")
-    stream_lengths = {name: s.seq_len for name, s in plan.streams.items()}
-    emit({"model": {"size": "medium", "dataset": "flair", "fusion": "group", "inter_depth": 3,
-                    "dtype": "bfloat16", "params": sum(p.numel() for p in model.parameters()),
-                    "stream_lengths": stream_lengths,
-                    "trunk_length": sum(stream_lengths.values())}})
-    batches = {b: make_synthetic_batch(datasets.dataset, b, seed=b) for b in REQUEST_BATCHES}
 
+def loss_checks(fused_loss, plan, gen) -> tuple[float, float]:
+    """Fused loss forward and backward vs plain at the FLAIR modality rows of
+    batch 8; returns the bf16 max abs errors of the sum and of d_rec."""
+    sum_err = grad_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for square in (False, True):
+            for name, (n, f, slices) in flair_loss_rows(plan, CHECK_BATCH).items():
+                t, r, m = loss_inputs(n, f, dtype, gen)
+                r.requires_grad_(True)
+                s, c = fused_loss.masked_patchnorm_sums(t, r, m, slices, square)
+                g = torch.tensor(0.37, device="cuda")
+                (got_dr,) = torch.autograd.grad(s, r, g)
+                torch.cuda.synchronize()
+                s_p, c_p = fused_loss.masked_patchnorm_sums_plain_fwd(t, r.detach(), m, slices, square)
+                want_dr = fused_loss.masked_patchnorm_sums_plain_bwd(
+                    t, r.detach(), m, g, slices, square)
+                label = f"loss {name} {'l2' if square else 'l1'} {dtype}"
+                s_rel = abs(s.item() - s_p.item()) / abs(s_p.item())
+                if not s_rel <= LOSS_SUM_RTOL or c.item() != c_p.item():
+                    raise AssertionError(f"{label}: sums {s.item()}, {c.item()} vs plain "
+                                         f"{s_p.item()}, {c_p.item()}")
+                diff = (got_dr.float() - want_dr.float()).abs()
+                limit = LOSS_GRAD_TOL[dtype] * (want_dr.float().abs()
+                                                + want_dr.float().square().mean().sqrt())
+                flips = int((diff > limit).sum())
+                if not torch.isfinite(got_dr).all() or flips > LOSS_SIGN_FLIP_SHARE * diff.numel() \
+                        or (square and flips):
+                    raise AssertionError(f"{label}: d_rec off at {flips} of {diff.numel()}")
+                emit({"check": "masked_patchnorm_sums", "modality": name, "rows": [n, f],
+                      "slices": slices, "loss": "l2" if square else "l1", "dtype": str(dtype),
+                      "sum_rel_err": s_rel, "sum_rtol": LOSS_SUM_RTOL,
+                      "d_rec_max_abs_err": diff.max().item(),
+                      "d_rec_elements_over_tolerance": flips,
+                      "d_rec_tolerance_x_abs_plus_rms": LOSS_GRAD_TOL[dtype]})
+                if dtype == torch.bfloat16:
+                    sum_err = max(sum_err, abs(s.item() - s_p.item()))
+                    grad_err = max(grad_err, diff.max().item())
+    return sum_err, grad_err
+
+
+def serving_phase(model, batches, predict, attention, attn_pool, vit, want_profile) -> dict:
+    """Requests through the kernels (counts from 0), latency, plain-path agreement."""
     attention.launch_count = 0
     attn_pool.launch_count = 0
     logits_kernel = {}
@@ -288,9 +396,9 @@ def main() -> None:
             msg = f"batch {b}: bad logits {tuple(logits.shape)}"
             raise AssertionError(msg)
         logits_kernel[b] = logits
-    attn_launches, pool_launches = attention.launch_count, attn_pool.launch_count
-    if attn_launches == 0 or pool_launches == 0:
-        raise AssertionError("the main path did not launch both kernels")
+    launches = {"attention": attention.launch_count, "pool": attn_pool.launch_count}
+    if 0 in launches.values():
+        raise AssertionError("the serving path did not launch both kernels")
 
     # latency (host clock around whole requests, numpy batch in, synchronize at the end)
     latency = {}
@@ -314,11 +422,12 @@ def main() -> None:
         latency[b] = statistics.median(times)
     if want_profile:
         for b in (1, 8):
-            emit({"profile": {"batch": b, **profile_requests(predict, batches[b], latency[b])}})
+            emit({"profile": {"path": "serve", "batch": b,
+                              **profile_device(lambda b=b: predict(batches[b]), latency[b])}})
 
     # the same model through the plain versions, on the card
-    kernel_fns = (vit.mha_blhd, vit.attentive_pool)
-    vit.mha_blhd = attention.mha_blhd_plain
+    kernel_fns = (vit.mha_qkv, vit.attentive_pool)
+    vit.mha_qkv = attention.mha_qkv_plain
     vit.attentive_pool = attn_pool.attentive_pool_plain
     try:
         count_before = (attention.launch_count, attn_pool.launch_count)
@@ -343,15 +452,263 @@ def main() -> None:
         torch.cuda.synchronize()
         emit({"plain_path_request": {"batch": 8, "latency_ms": (time.perf_counter() - t0) * 1e3}})
     finally:
-        vit.mha_blhd, vit.attentive_pool = kernel_fns
-    del logits_kernel
+        vit.mha_qkv, vit.attentive_pool = kernel_fns
+    return launches
 
-    # ---- 5. kernel times at the main path's shapes (batch 8), back to back
-    # (inputs stay warm in L2, as they are right after the qkv projection)
+
+def train_phase(datasets, card: str, want_profile: bool) -> dict:
+    """Pretrain steps: kernel path vs plain path at batch 8 (counts from 0),
+    then timed steps at the largest batch of TRAIN_BATCHES that fits."""
+    from maestro_tpu_torch.conf import MaskConfig, ModelConfig, OptPretrainConfig
+    from maestro_tpu_torch.models import vit
+    from maestro_tpu_torch.models.mae import build_model
+    from maestro_tpu_torch.ops import attention, fused_loss
+    from maestro_tpu_torch.train.optim import make_optimizer
+    from maestro_tpu_torch.train.state import TrainState
+    from maestro_tpu_torch.train.steps import make_pretrain_step
+    from maestro_tpu_torch.utils.flops import decoder_mlp_undercount, mae_model_flops
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    def fresh(batch_size: int):
+        model, plan = build_model(
+            datasets, MaskConfig(),
+            ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3),
+            dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(0),
+        )
+        tx = make_optimizer(OptPretrainConfig(batch_size=batch_size), "pretrain", 1000, model)
+        return model, plan, TrainState.create(model, tx), make_pretrain_step(model, plan, tx)
+
+    def counts():
+        return (attention.launch_count, attention.bwd_launch_count,
+                fused_loss.fwd_launch_count, fused_loss.bwd_launch_count)
+
+    def run(steps: int, state, step, batch):
+        """Losses and launches per step; the update of step 1 and the norm of
+        the trained parameters before it."""
+        trained = [p for g in state.tx.adamw.param_groups for p in g["params"]]
+        p0 = torch.cat([p.detach().flatten() for p in trained])
+        losses, per_step, update = [], [], None
+        for i in range(steps):
+            before = counts()
+            state, logs = step(state, batch, 0)
+            losses.append(logs["loss_rec"].item())
+            per_step.append([a - b for a, b in zip(counts(), before)])
+            if i == 0:
+                update = torch.cat([p.detach().flatten() for p in trained]) - p0
+        return losses, update, per_step, p0.norm().item()
+
+    # ---- (a) kernel path vs plain path, same weights and masks, batch 8
+    batch = make_synthetic_batch(datasets.dataset, CHECK_BATCH, seed=0)
+    model, plan, state, step = fresh(CHECK_BATCH)
+    for name in ("launch_count", "bwd_launch_count"):
+        setattr(attention, name, 0)
+    fused_loss.fwd_launch_count = fused_loss.bwd_launch_count = 0
+    losses_k, update_k, per_step, norm0 = run(3, state, step, batch)
+    launches = dict(zip(("attention_fwd", "attention_bwd", "loss_fwd", "loss_bwd"), counts()))
+    want = [ATTN_PER_STEP, ATTN_PER_STEP, LOSS_PER_STEP, LOSS_PER_STEP]
+    if any(n != want for n in per_step) or 0 in launches.values():
+        raise AssertionError(f"train step launches {per_step}, expected {want} per step")
+    del model, state, step
+    model, _, state, step = fresh(CHECK_BATCH)
+    kernel_fns = (vit.mha_qkv, fused_loss.masked_patchnorm_sums)
+    vit.mha_qkv = attention.mha_qkv_plain
+    fused_loss.masked_patchnorm_sums = fused_loss.masked_patchnorm_sums_plain_fwd
+    try:
+        losses_p, update_p, per_step_p, _ = run(3, state, step, batch)
+    finally:
+        vit.mha_qkv, fused_loss.masked_patchnorm_sums = kernel_fns
+    if any(any(n) for n in per_step_p):
+        raise AssertionError("the plain path launched a kernel")
+    rel_k = update_k.norm().item() / norm0
+    rel_p = update_p.norm().item() / norm0
+    cos = torch.nn.functional.cosine_similarity(update_k, update_p, dim=0).item()
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+    emit({"train_agreement": {
+        "batch": CHECK_BATCH, "loss_kernel_path": losses_k, "loss_plain_path": losses_p,
+        "loss_rel_err": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+        "step1_update_rel_norm_kernel": rel_k, "step1_update_rel_norm_plain": rel_p,
+        "update_rel_norm_rtol": STEP_UPDATE_RTOL, "step1_update_cosine": cos,
+        "launches_per_step": dict(zip(("attention_fwd", "attention_bwd", "loss_fwd",
+                                       "loss_bwd"), per_step[0]))}})
+    if not all(e <= STEP_LOSS_RTOL for e in loss_rel) or not all(map(math.isfinite, losses_k)):
+        raise AssertionError(f"train losses disagree: {losses_k} vs {losses_p}")
+    if not abs(rel_k - rel_p) <= STEP_UPDATE_RTOL * rel_p:
+        raise AssertionError(f"step-1 updates disagree: {rel_k} vs {rel_p}")
+    del model, state, step, update_k, update_p
+    torch.cuda.empty_cache()
+
+    # ---- (b) timed steps at the bench's batch (48) or the largest that fits.
+    # The batch is staged on the card once, as a prefetching loader (and the
+    # JAX package's bench) has it; steps run back to back, the host syncs
+    # once at the end, and each step's period is read between CUDA events
+    # recorded as it starts (the device timeline, host stalls included).
+    timed = None
+    for bsz in TRAIN_BATCHES:
+        try:
+            model, plan, state, step = fresh(bsz)
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in make_synthetic_batch(datasets.dataset, bsz, seed=1).items()}
+            for _ in range(WARMUP_STEPS):
+                state, logs = step(state, batch, 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+            losses = []
+            t0 = time.perf_counter()
+            for i in range(TIMED_STEPS):
+                marks[i].record()
+                state, logs = step(state, batch, 0)
+                losses.append(logs["loss_rec"])
+            marks[-1].record()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+            times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+            losses = [x.item() for x in losses]
+            peak_mem = torch.cuda.max_memory_allocated()
+            # the same steps as a plain loop has them: the numpy batch copied
+            # in every step, the loss read after every step (host clock)
+            host_batch = make_synthetic_batch(datasets.dataset, bsz, seed=1)
+            synced = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                state, logs = step(state, host_batch, 0)
+                logs["loss_rec"].item()
+                synced.append((time.perf_counter() - t0) * 1e3)
+            timed = (bsz, times, losses, peak_mem, wall_ms, synced)
+            break
+        except torch.cuda.OutOfMemoryError:
+            emit({"train_batch_does_not_fit": bsz})
+            model = state = step = None
+            torch.cuda.empty_cache()
+    if timed is None:
+        raise AssertionError(f"no batch of {TRAIN_BATCHES} fits")
+    bsz, times, losses, peak_mem, wall_ms, synced = timed
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite train losses {losses}")
+    step_ms = statistics.median(times)
+    tokens = sum(s.seq_len * s.batch_factor for s in plan.streams.values())
+    flops = mae_model_flops(plan, model.arch, model.inter_depth, "pretrain", bsz)
+    flops_real = flops + decoder_mlp_undercount(plan, model.arch, bsz)
+    peak = next((v for k, v in BF16_PEAK_BY_NAME.items() if k in card), None)
+    emit({"train_step": {
+        "batch": bsz, "batch_note": "the bench's batch" if bsz == 48 else "largest that fits",
+        "remat": False, "step_ms_median": step_ms, "step_ms_all": times,
+        "host_clock_ms_per_step": wall_ms,
+        "step_ms_numpy_batch_and_loss_read_every_step": synced,
+        "tokens_per_sample": tokens, "tokens_per_s": tokens * bsz / (step_ms / 1e3),
+        "model_flops_per_step": flops, "model_flops_per_step_real_decoder_mlp": flops_real,
+        "peak_bf16_flops": peak, "peak_from": card,
+        "mfu": None if peak is None else flops / (step_ms / 1e3) / peak,
+        "mfu_real_decoder_mlp": None if peak is None else flops_real / (step_ms / 1e3) / peak,
+        "peak_memory_bytes": peak_mem, "losses": losses}})
+    if want_profile:
+        emit({"profile": {"path": "train", "batch": bsz,
+                          **profile_device(lambda: step(state, batch, 0), step_ms)}})
+    del model, state, step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "batch": bsz, "plan": plan}
+
+
+def main() -> None:
+    want_profile = "--profile" in sys.argv[1:]
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs on the GPU only.",
+              file=sys.stderr)
+        sys.exit(1)
+
+    from maestro_tpu_torch.conf import DatasetsConfig, MaskConfig, ModelConfig
+    from maestro_tpu_torch.models import vit
+    from maestro_tpu_torch.models.mae import build_model
+    from maestro_tpu_torch.ops import attention, attn_pool, cuda_build, fused_loss
+    from maestro_tpu_torch.serve import make_predict_fn
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    # ---- 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0]})
+
+    # ---- 2. the build (every source compiled in parallel at first use)
+    attention._kernel()
+    attn_pool._kernel()
+    fused_loss._kernel()
+    log = str(cuda_build.build_info.get("log", ""))
+    emit({"build": {
+        "seconds": round(float(cuda_build.build_info["seconds"]), 2),
+        "directory": cuda_build.build_info["directory"],
+        "sources": sorted(p.name for p in cuda_build.CSRC.glob("*.cu")),
+        "ptxas_spill_lines": ptxas_spills(log),
+        "max_registers": max((int(ln.split("Used ")[1].split(" registers")[0])
+                              for ln in log.splitlines() if "Used " in ln and " registers" in ln),
+                             default=None),
+    }})
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    datasets = DatasetsConfig(name_dataset="flair")
+
+    # ---- 3. every kernel vs its plain version
+    attn_err = attention_fwd_checks(attention, gen)
+    bwd_err = attention_bwd_checks(attention, gen)
+    pool_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in POOL_CHECK_SHAPES:
+            args = pool_inputs(shape, dtype, gen)
+            out, m, den = attn_pool.attentive_pool(*args, POOL_HEADS)
+            torch.cuda.synchronize()
+            out_p, m_p, den_p = attn_pool.attentive_pool_plain(*args, POOL_HEADS)
+            name = f"pool {shape} {dtype}"
+            max_abs, over = check_close(name + " out", out, out_p, POOL_TOL[dtype])
+            m_err, _ = check_close(name + " m", m, m_p, POOL_STATS_TOL[dtype])
+            den_err, _ = check_close(name + " den", den, den_p, POOL_STATS_TOL[dtype])
+            emit({"check": "attentive_pool_fwd", "dtype": str(dtype), "shape": list(shape),
+                  "heads": POOL_HEADS, "tolerance_x_abs_plus_rms": POOL_TOL[dtype],
+                  "max_abs_err": max_abs, "max_err_over_tolerance": over,
+                  "stats_tolerance": POOL_STATS_TOL[dtype], "m_max_abs_err": m_err,
+                  "den_max_abs_err": den_err})
+            if dtype == torch.bfloat16 and shape == POOL_CHECK_SHAPES[0]:
+                pool_err = max_abs
+    model_cfg = ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3)
+    model, plan = build_model(
+        datasets, MaskConfig(), model_cfg, dtype=torch.bfloat16, device="cuda",
+        generator=torch.Generator().manual_seed(0),
+    )
+    loss_sum_err, loss_grad_err = loss_checks(fused_loss, plan, gen)
+
+    # ---- 4. the serving path
+    predict = make_predict_fn(model, "finetune")
+    stream_lengths = {name: s.seq_len for name, s in plan.streams.items()}
+    emit({"model": {"size": "medium", "dataset": "flair", "fusion": "group", "inter_depth": 3,
+                    "dtype": "bfloat16", "params": sum(p.numel() for p in model.parameters()),
+                    "stream_lengths": stream_lengths,
+                    "kept_lengths": {n: s.seq_len - s.num_masked for n, s in plan.streams.items()},
+                    "trunk_length": sum(stream_lengths.values())}})
+    batches = {b: make_synthetic_batch(datasets.dataset, b, seed=b) for b in REQUEST_BATCHES}
+    serve_launches = serving_phase(model, batches, predict, attention, attn_pool, vit,
+                                   want_profile)
     heads, dim_head = model.arch.heads, model.arch.dim_head
-    depth = model.arch.depth - model.inter_depth
+    dec_heads, dec_dim_head = model.arch.decoder_heads, model.arch.decoder_dim_head
+    depth, inter_depth = model.arch.depth - model.inter_depth, model.inter_depth
+    dec_depth = model.arch.decoder_depth
+    del model, predict, batches
+    torch.cuda.empty_cache()
+
+    # ---- 5. the pretrain path
+    card = smi.split(",")[0].strip()
+    train = train_phase(datasets, card, want_profile)
+    train_batch = train["batch"]
+
+    # ---- 6. kernel times at the main paths' shapes, back to back
+    # (inputs stay warm in L2, as they are right after the qkv projection)
     shapes = [(length, depth) for length in stream_lengths.values()]
-    shapes.append((sum(stream_lengths.values()), model.inter_depth))
+    shapes.append((sum(stream_lengths.values()), inter_depth))
     attn_rows, totals = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
     bound_kinds = {}
     for length, count in shapes:
@@ -376,22 +733,115 @@ def main() -> None:
     pool_plain_ms = time_ms(lambda: attn_pool.attentive_pool_plain(*pargs, POOL_HEADS), 5)
     pool_bound_ms, pool_bound_by = pool_bound(*pool_shape, POOL_HEADS)
 
+    # the pretrain step's attention shapes: (length, heads, dim, launches per step)
+    kept = [s.seq_len - s.num_masked for s in train["plan"].streams.values()]
+    train_shapes = ([(l, heads, dim_head, depth) for l in kept]
+                    + [(sum(kept), heads, dim_head, inter_depth)]
+                    + [(l, dec_heads, dec_dim_head, dec_depth) for l in stream_lengths.values()])
+    bwd_rows = []
+    bwd_totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                  "fwd_ms": 0.0}
+    bwd_kinds = {}
+    for length, h, d, count in train_shapes:
+        scale = d**-0.5
+        qkv = qkv_fused(train_batch, length, h, d, torch.bfloat16, gen)
+        q, k, v = qkv.unbind(dim=2)
+        out, lse = attention._fwd(q, k, v, scale, with_lse=True)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        fwd_ms = time_ms(lambda: attention._fwd(q, k, v, scale, with_lse=True), 10)
+        ms = time_ms(lambda: attention._bwd(q, k, v, out, lse, dout, scale), 10)
+        plain_in = qkv.detach().requires_grad_(True)
+        plain_out = attention.mha_qkv_plain(plain_in, scale)
+        plain_ms = time_ms(lambda: torch.autograd.grad(plain_out, plain_in, dout,
+                                                       retain_graph=True), 3, warmup=1)
+        del plain_in, plain_out
+        lib_in = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_in, scale=scale)
+        dout_t = dout.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout_t, retain_graph=True), 10)
+        del lib_in, lib_out
+        bound_ms, bound_by = attention_bwd_bound(train_batch, length, h, d, torch.bfloat16)
+        bwd_rows.append({"shape": [train_batch, length, h, d], "calls_per_step": count,
+                         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "fwd_with_lse_ms": fwd_ms})
+        bwd_kinds[bound_by] = bwd_kinds.get(bound_by, 0.0) + count * bound_ms
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", bound_ms), ("fwd_ms", fwd_ms)):
+            bwd_totals[key] += count * val
+        del qkv, q, k, v, out, lse, dout
+    loss_rows = {"fwd": [], "bwd": []}
+    loss_totals = {d: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for d in loss_rows}
+    loss_kinds = {d: {} for d in loss_rows}
+    for name, (n, f, slices) in flair_loss_rows(train["plan"], train_batch).items():
+        t, r, m = loss_inputs(n, f, torch.bfloat16, gen)
+        g = torch.tensor(0.37, device="cuda")
+        runs = {
+            "fwd": (lambda: fused_loss._fwd_kernel(t, r, m, slices, False),
+                    lambda: fused_loss.masked_patchnorm_sums_plain_fwd(t, r, m, slices, False)),
+            "bwd": (lambda: fused_loss._bwd_kernel(t, r, m, g, slices, False),
+                    lambda: fused_loss.masked_patchnorm_sums_plain_bwd(t, r, m, g, slices, False)),
+        }
+        for direction, (kernel_fn, plain_fn) in runs.items():
+            ms = time_ms(kernel_fn, 10)
+            plain_ms = time_ms(plain_fn, 3, warmup=1)
+            bound_ms, bound_by = loss_bound(n, f, 2, direction == "bwd")
+            loss_rows[direction].append({"modality": name, "rows": [n, f], "ms": ms,
+                                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                         "bound_by": bound_by})
+            loss_kinds[direction][bound_by] = loss_kinds[direction].get(bound_by, 0.0) + bound_ms
+            for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
+                loss_totals[direction][key] += val
+        del t, r, m
+
     emit({"seconds_total": round(time.perf_counter() - t_start, 1)})
+    tl = train["launches"]
+    loss_entry = lambda direction, fn_name, line, launches, err: {  # noqa: E731
+        "name": fn_name, "route": "cuda", "source": "maestro_tpu_torch/csrc/fused_loss.cu",
+        "replaces": f"maestro_tpu/ops/fused_loss.py:{line}",
+        "launches": launches, "launches_by_path": {"serve": 0, "train": launches},
+        "max_abs_err": err, **loss_totals[direction],
+        "bound_by": max(loss_kinds[direction], key=loss_kinds[direction].get),
+        "library_ms": None,
+        "times_are": f"sum over the {LOSS_PER_STEP} launches of one batch-{train_batch} "
+                     "train step (one per modality), bf16 staging, l1",
+        "per_shape": loss_rows[direction]}
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/flash_attention.cu",
          "replaces": "maestro_tpu/ops/attention.py:270",
          "also_replaces": ["maestro_tpu/ops/attention.py:488", "maestro_tpu/ops/attention.py:124",
                            "maestro_tpu/ops/attention.py:82"],
-         "launches": attn_launches, "max_abs_err": attn_err,
+         "launches": serve_launches["attention"] + tl["attention_fwd"],
+         "launches_by_path": {"serve": serve_launches["attention"], "train": tl["attention_fwd"]},
+         "max_abs_err": attn_err,
          "ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
          "bound_by": max(bound_kinds, key=bound_kinds.get), "library_ms": totals["library_ms"],
          "times_are": "sum over the 39 launches of one batch-8 request, bf16",
+         "train_step_fwd_with_lse_ms": bwd_totals["fwd_ms"],
          "per_shape": attn_rows},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "maestro_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "maestro_tpu/ops/attention.py:289",
+         "also_replaces": ["maestro_tpu/ops/attention.py:507", "maestro_tpu/ops/attention.py:141",
+                           "maestro_tpu/ops/attention.py:82"],
+         "launches": tl["attention_bwd"],
+         "launches_by_path": {"serve": 0, "train": tl["attention_bwd"]},
+         "max_abs_err": bwd_err,
+         "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
+         "bound_ms": bwd_totals["bound_ms"], "bound_by": max(bwd_kinds, key=bwd_kinds.get),
+         "library_ms": bwd_totals["library_ms"],
+         "times_are": f"sum over the {ATTN_PER_STEP} calls of one batch-{train_batch} train "
+                      "step, bf16; a call is three launches (Delta, dK/dV, dQ); library = "
+                      "the backward of scaled_dot_product_attention",
+         "per_shape": bwd_rows},
+        loss_entry("fwd", "masked_patchnorm_sums_fwd", 53, tl["loss_fwd"], loss_sum_err),
+        loss_entry("bwd", "masked_patchnorm_sums_bwd", 76, tl["loss_bwd"], loss_grad_err),
         {"name": "attentive_pool_fwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/attn_pool.cu",
          "replaces": "maestro_tpu/ops/attn_pool.py:72",
-         "launches": pool_launches, "max_abs_err": pool_err,
+         "launches": serve_launches["pool"],
+         "launches_by_path": {"serve": serve_launches["pool"], "train": 0},
+         "max_abs_err": pool_err,
          "ms": pool_ms, "plain_ms": pool_plain_ms, "bound_ms": pool_bound_ms,
          "bound_by": pool_bound_by, "library_ms": None,
          "times_are": "one launch at [8, 26, 64, 768] bf16, 8 heads; 16 launches per request"},

@@ -4,6 +4,8 @@ from maestro_tpu_torch.conf.core import (
     ExperimentConfig,
     MaskConfig,
     ModelConfig,
+    OptConfig,
+    OptPretrainConfig,
     TrainerConfig,
 )
 from maestro_tpu_torch.conf.dataset.base import (
@@ -28,6 +30,8 @@ __all__ = [
     "InputRasterConfig",
     "MaskConfig",
     "ModelConfig",
+    "OptConfig",
+    "OptPretrainConfig",
     "PASTISHDConfig",
     "PatchSizeConfig",
     "RasterConfig",

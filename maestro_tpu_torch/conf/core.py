@@ -1,14 +1,35 @@
-"""Mask / model / trainer configs read by the ported model stack.
+"""Optimizer / mask / model / trainer configs read by the ported code.
 
 Field names and defaults follow the JAX package's ``conf/core.py`` (which
-mirrors the reference config groups mask.py, model.py, trainer.py).  Only the
-groups and fields that ported code reads are kept: the run, optimizer and
-data-pipeline groups arrive with the training slices that consume them.
+mirrors the reference config groups opt.py, mask.py, model.py, trainer.py).
+Only the groups and fields that ported code reads are kept: the run, probe /
+finetune optimizer and data-pipeline groups arrive with the slices that
+consume them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+
+@dataclass
+class OptConfig:
+    """AdamW + OneCycle hyper-parameters shared across phases."""
+
+    b1: float = 0.9
+    b2: float = 0.99
+    wd: float = 0.01
+    accumulate_grad_batches: int = 1
+    base_lr: float = 3e-5
+    epochs: int = 20
+    batch_size: int = 32
+
+
+@dataclass
+class OptPretrainConfig(OptConfig):
+    base_lr: float = 3e-5
+    epochs: int = 20
+    batch_size: int = 32
 
 
 @dataclass

@@ -1,6 +1,8 @@
 // flash_attention_fwd: exact (non-causal) softmax attention on the head-packed
 // [B, L, H, D] layout, read through strides so q, k, v can be views of a fused
-// qkv projection.  Forward only.
+// qkv projection.  Forward; the backward is flash_attention_bwd.cu, which reads
+// the optional fp32 logsumexp [B, H, L] this kernel writes when given a
+// pointer (the serving path passes none and writes nothing extra).
 //
 // Replaces the forward attention tiers of the JAX package's ops/attention.py
 // (_pk_fwd_kernel, _qb_fwd_kernel, _sb_fwd_kernel, the stock flash kernel and
@@ -20,9 +22,7 @@
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_helpers.cuh"
 
 namespace {
 
@@ -41,48 +41,7 @@ constexpr int kWarps = 4;     // 16 query rows per warp
 constexpr int kPad = 8;       // bf16 elements of row padding: rows 16 bytes apart mod 128
 constexpr int kStages = 2;    // K/V tiles in flight (cp.async double buffer)
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lanes 8i..8i+7 give the row
-// addresses of matrix i.  Thread (g, t) receives row g, columns 2t, 2t+1 of
-// each matrix — or, with .trans, rows 2t, 2t+1 of column g.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&p);
-}
+using namespace mma;
 
 template <int D>
 constexpr size_t attn_mma_smem_bytes() {
@@ -93,7 +52,8 @@ template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 attn_mma_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-              int L, Strides sq, Strides sk, Strides sv, Strides so, float sm_scale) {
+              float* __restrict__ lse, int L, Strides sq, Strides sk, Strides sv, Strides so,
+              float sm_scale) {
   constexpr int LD = D + kPad;          // shared row stride in elements
   constexpr int TILE = kBN * LD;        // elements of one K (or V) tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -280,6 +240,11 @@ attn_mma_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
           pack_bf16(oacc[dt][2] * inv_hi, oacc[dt][3] * inv_hi);
     }
   }
+  if (lse != nullptr && t == 0) {  // logsumexp of the scaled scores, [B, H, L]
+    float* lb = lse + ((long long)batch * gridDim.y + head) * L;
+    if (r_lo < L) lb[r_lo] = m_lo + __logf(l_lo);
+    if (r_hi < L) lb[r_hi] = m_hi + __logf(l_hi);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -292,8 +257,8 @@ constexpr int kFThreads = 128;
 template <int D>
 __global__ void __launch_bounds__(kFThreads)
 attn_fma(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-         float* __restrict__ o, int L, Strides sq, Strides sk, Strides sv, Strides so,
-         float sm_scale) {
+         float* __restrict__ o, float* __restrict__ lse, int L, Strides sq, Strides sk,
+         Strides sv, Strides so, float sm_scale) {
   __shared__ float Qs[kFM][D];
   __shared__ float Ks[kFN][D + 1];  // +1: lanes read one column of 32 rows
   __shared__ float Vs[kFN][D];
@@ -384,11 +349,14 @@ attn_fma(const float* __restrict__ q, const float* __restrict__ k, const float* 
     float* op = o + batch * so.b + head * so.h + (long long)(row0 + orow) * so.l;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) op[ocol + 8 * i] = oacc[i] * inv;
+    if (lse != nullptr && ocol == 0) {
+      lse[((long long)batch * gridDim.y + head) * L + row0 + orow] = m_s[orow] + logf(l_s[orow]);
+    }
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int L, int H,
            Strides sq, Strides sk, Strides sv, Strides so, float sm_scale, int dtype,
            cudaStream_t stream) {
   if (dtype == 0) {
@@ -404,13 +372,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int L, i
     dim3 grid((L + kBM - 1) / kBM, H, B);
     attn_mma_bf16<D><<<grid, kWarps * 32, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), L, sq, sk, sv, so,
-        sm_scale);
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, L, sq, sk, sv,
+        so, sm_scale);
   } else {
     dim3 grid((L + kFM - 1) / kFM, H, B);
     attn_fma<D><<<grid, kFThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), L, sq, sk, sv, so, sm_scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, L, sq, sk, sv, so, sm_scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -419,7 +387,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int L, i
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for a head dim / dtype this file does not build.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
+// lse: null, or fp32 [B, H, L] contiguous, written with each row's logsumexp.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int B,
                                    int L, int H, int D, long long q_sb, long long q_sl,
                                    long long q_sh, long long k_sb, long long k_sl,
                                    long long k_sh, long long v_sb, long long v_sl,
@@ -430,10 +400,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
       so{o_sb, o_sl, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return launch<32>(q, k, v, o, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
-    case 64: return launch<64>(q, k, v, o, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
-    case 96: return launch<96>(q, k, v, o, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
-    case 128: return launch<128>(q, k, v, o, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
+    case 32: return launch<32>(q, k, v, o, lse, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
+    case 64: return launch<64>(q, k, v, o, lse, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
+    case 96: return launch<96>(q, k, v, o, lse, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
+    case 128: return launch<128>(q, k, v, o, lse, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,7 +11,11 @@ import torch
 from torch import nn
 
 from maestro_tpu_torch.models.vit import dense, init_linear
-from maestro_tpu_torch.ops.patch import patchify_pixels
+from maestro_tpu_torch.ops.patch import (
+    expand_token_mask_to_pixels,
+    patchify_pixels,
+    unpatchify_pixels,
+)
 
 
 class PatchEmbed(nn.Module):
@@ -54,14 +58,49 @@ class PatchEmbed(nn.Module):
 
 
 class Pixelify(nn.Module):
-    """Token -> pixel projection of the pretrain decoder, one dense per band
-    group.  Only the parameters exist so far: the reconstruction forward
-    arrives with the pretrain step."""
+    """[B, G*D, L, C_dec] -> pixels [B, D, C, H, W] (+ pixel mask expansion),
+    one dense per band group."""
 
     def __init__(self, band_groups: tuple[int, ...], patch_size: int,
-                 decoder_dim: int, generator: torch.Generator, device) -> None:
+                 decoder_dim: int, dtype: torch.dtype,
+                 generator: torch.Generator, device) -> None:
         super().__init__()
+        self.band_groups, self.patch_size, self.dtype = band_groups, patch_size, dtype
         for g, chans in enumerate(band_groups):
             proj = nn.Linear(decoder_dim, chans * patch_size**2, device=device)
             init_linear(proj, generator)
             self.add_module(f"proj{g}", proj)
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,  # [B, G*D, L] bool token mask
+        tokens_only: bool = False,
+    ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        num_groups = len(self.band_groups)
+        b, gd, l, _ = x.shape
+        d = gd // num_groups
+        x = x.reshape(b, num_groups, d, l, x.shape[-1])
+        if mask is not None:
+            mask = mask.reshape(b, num_groups, d, l)
+
+        if tokens_only:
+            # token-space reconstruction [B, D, L, C*p*p] in (C, ph, pw)
+            # feature order + per-token mask; skips the pixel shuffle so the
+            # loss never materializes / re-patchifies the full pixel grid
+            if num_groups != 1:
+                msg = "tokens_only requires a single band group."
+                raise ValueError(msg)
+            y = dense(x[:, 0], self.proj0, self.dtype)
+            return y, (mask[:, 0] if mask is not None else None)
+
+        pix, pix_mask = [], []
+        for g, chans in enumerate(self.band_groups):
+            y = dense(x[:, g], getattr(self, f"proj{g}"), self.dtype)
+            pix.append(unpatchify_pixels(y, self.patch_size, chans))
+            if mask is not None:
+                pix_mask.append(expand_token_mask_to_pixels(mask[:, g], self.patch_size, chans))
+        pixels = pix[0] if num_groups == 1 else torch.cat(pix, dim=2)
+        if mask is None:
+            return pixels, None
+        return pixels, pix_mask[0] if num_groups == 1 else torch.cat(pix_mask, dim=2)

@@ -4,16 +4,11 @@ Functional re-design of the reference model stack (maestro/ssl/mim.py:26-505
 + ssl/mae.py:15-307): the dynamic dict-of-modules wiring becomes a static
 :class:`FusionPlan` held by one module, so each (dataset, fusion_mode, phase)
 has fixed tensor shapes.  Dates/band-groups are compiled into token layouts;
-encoders/decoders are per-stream ViTs with an optional shared inter-modality
-trunk.
+masking is the biased shuffle of ops/masking.py; encoders/decoders are
+per-stream ViTs with an optional shared inter-modality trunk.
 
 Size variants (reference mae.py:309-378): tiny d192x12L, small d384x12L,
 medium/base d768x12L mlp*4, large d1024x24L; decoder d512, depth 1/2/3/4.
-
-Ported so far: the supervised phases (probe / finetune forward).  The
-pretrain forward (masking, decoders, pixel reconstruction) is not: its
-parameters are constructed so the whole parameter tree can be carried over,
-and ``forward(batch, "pretrain")`` raises.
 """
 
 from __future__ import annotations
@@ -28,7 +23,8 @@ from maestro_tpu_torch.conf.dataset.base import DatasetConfig, RasterConfig
 from maestro_tpu_torch.conf.datasets import DatasetsConfig
 from maestro_tpu_torch.models.embed import PatchEmbed, Pixelify
 from maestro_tpu_torch.models.heads import ChunkedSegHead, ClassificationHead
-from maestro_tpu_torch.models.vit import Transformer, init_linear, normal_parameter
+from maestro_tpu_torch.models.vit import Transformer, dense, init_linear, normal_parameter
+from maestro_tpu_torch.ops import masking
 from maestro_tpu_torch.ops.posenc import build_pos_encoding, encode_dates
 from maestro_tpu_torch.ops.resize import resize_spatial
 from maestro_tpu_torch.specs.fusion import FusionPlan, build_fusion_plan
@@ -159,7 +155,7 @@ class MaestroMAE(nn.Module):
         })
         self.pixelify = nn.ModuleDict({
             name: Pixelify(spec.band_groups, spec.patch_size, arch.decoder_dim,
-                           generator, device)
+                           dtype, generator, device)
             for name, spec in embed_specs.items()
         })
 
@@ -171,16 +167,22 @@ class MaestroMAE(nn.Module):
             for name, spec in plan.mod_specs.items()
         })
 
-        # --- static positional encodings per modality, in the compute dtype
+        # --- static positional encodings per modality (encoder and decoder
+        # widths), in the compute dtype
         for name, spec in plan.mod_specs.items():
             pos = build_pos_encoding(
                 plan.grid_pos_enc, spec.grid, arch.embed_dim, date_dim,
                 fac=fac_abs_enc,
             )
-            self.register_buffer(
-                f"pos_enc_{name}", torch.from_numpy(pos).to(device=device, dtype=dtype),
-                persistent=False,
+            pos_dec = build_pos_encoding(
+                plan.grid_pos_enc, spec.grid, arch.decoder_dim, date_dim,
             )
+            for prefix, value in (("pos_enc", pos), ("pos_dec", pos_dec)):
+                self.register_buffer(
+                    f"{prefix}_{name}",
+                    torch.from_numpy(value).to(device=device, dtype=dtype),
+                    persistent=False,
+                )
 
         # --- per-stream encoders / decoders (+ optional shared trunk)
         def encoder(depth: int) -> Transformer:
@@ -259,6 +261,19 @@ class MaestroMAE(nn.Module):
             tokens[name] = t + pos + date
         return tokens
 
+    def mask_token_full(self, batch_size: int) -> dict[str, torch.Tensor]:
+        """Broadcast per-mod mask tokens to the full token layout."""
+        out = {}
+        for name, spec in self.plan.mod_specs.items():
+            tok = self.mask_tokens[name].to(self.dtype).expand(
+                batch_size, spec.len_bands, spec.num_dates, spec.tokens_per_date,
+                self.arch.decoder_dim,
+            )
+            out[name] = tok.reshape(
+                batch_size, spec.date_axis, spec.tokens_per_date, self.arch.decoder_dim,
+            )
+        return out
+
     def encode_streams(self, streams: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         """Per-stream encoders, then the shared inter-modality trunk."""
         x = {
@@ -271,6 +286,20 @@ class MaestroMAE(nn.Module):
             trunk_out = self.encoder_inter(trunk_in)
             x = self.plan.split_streams_sizes(trunk_out, sizes)
         return x
+
+    def add_dec_encodings(self, streams: dict, batch: dict) -> dict:
+        """Decoder-width positional + date encodings (post-unmask)."""
+        x = self.plan.ungroup(streams)
+        for name, spec in self.plan.mod_specs.items():
+            date = encode_dates(
+                batch[f"{name}_dates"], batch["ref_date"],
+                dim=self.arch.decoder_dim, date_dim=self.date_dim,
+                fac_date_enc=self.fac_date_enc,
+                num_tokens=spec.tokens_per_date, len_bands=spec.len_bands,
+                dtype=self.dtype,
+            )
+            x[name] = x[name] + getattr(self, f"pos_dec_{name}") + date
+        return self.plan.group(x)
 
     def encode_for_heads(self, batch: dict) -> dict[str, torch.Tensor]:
         """Trunk features for the downstream heads (grouped streams): the
@@ -309,19 +338,80 @@ class MaestroMAE(nn.Module):
         return logits
 
     # ------------------------------------------------------------------
-    def forward(self, batch: dict, phase: str = "finetune") -> dict[str, torch.Tensor]:
-        """probe/finetune -> logits dict per target."""
+    def forward(self, batch: dict, phase: str = "finetune", return_pixels: bool = True,
+                *, generator: torch.Generator | None = None):
+        """Forward pass.
+
+        probe/finetune -> logits dict per target.  pretrain -> (rec, mask,
+        targets) dicts per modality, where ``targets`` are the resized /
+        rescaled inputs the reconstruction loss compares against; the masks
+        are drawn from ``generator`` (required; a CPU generator draws them on
+        the host and they are copied to the model's device) by
+        ``ops.masking.draw_masks``.
+
+        ``return_pixels=False`` (pretrain only) keeps the reconstruction in
+        token space — rec[name] is [B, D, L, C*p*p] in (C, ph, pw) feature
+        order with a [B, D, L] token mask — for single-band-group modalities,
+        skipping the pixel shuffle the loss would immediately undo.
+        """
         if phase not in PHASES:
             msg = f"Invalid phase {phase!r}; expected {PHASES}."
             raise ValueError(msg)
-        if phase == "pretrain":
-            msg = (
-                "the pretrain forward (masking, decoders, reconstruction) is "
-                "not ported yet: it arrives with the pretrain train step "
-                "(slice 2 of the port)."
+        if phase != "pretrain":
+            return self.compute_logits(self.encode_for_heads(batch), phase)
+        if generator is None:
+            msg = "the pretrain forward draws its masks from a generator: pass generator="
+            raise ValueError(msg)
+        return self.pretrain_forward(batch, generator, return_pixels)
+
+    def pretrain_forward(self, batch: dict, generator: torch.Generator,
+                         return_pixels: bool = True):
+        """Masking, encoders on the kept tokens, decoders, reconstruction."""
+        plan = self.plan
+        batch = self.resize_and_rescale(batch)
+        tokens = self.embed_tokens(batch)
+        batch_size = next(iter(tokens.values())).shape[0]
+        streams = plan.group(tokens)
+
+        # --- structural + random masking, encode kept tokens
+        struct, noise = (
+            masking.to_device(d, self.device)
+            for d in masking.draw_masks(plan, generator, batch_size)
+        )
+        kept, mask_rec = {}, {}
+        for name, stream in plan.streams.items():
+            kept[name], mask_rec[name], _ = masking.shuffle_mask(
+                streams[name], struct[name], noise[name], stream.num_masked,
             )
-            raise NotImplementedError(msg)
-        return self.compute_logits(self.encode_for_heads(batch), phase)
+        encoded = self.encode_streams(kept)
+
+        # --- decode: project, re-expand with mask tokens, add dec encodings
+        dec_in = {
+            name: dense(xs, self.enc_to_dec[plan.streams[name].encoder], self.dtype)
+            for name, xs in encoded.items()
+        }
+        mask_tok = plan.group(self.mask_token_full(batch_size))
+        full = {
+            name: masking.unmask(dec_in[name], mask_tok[name], mask_rec[name])
+            for name in plan.streams
+        }
+        full = self.add_dec_encodings(full, batch)
+        decoded = {
+            name: self.decoders[plan.streams[name].encoder](xs)
+            for name, xs in full.items()
+        }
+
+        # --- reconstruct per modality (token space or pixels)
+        x_mod = plan.ungroup(decoded)
+        mask_mod = plan.ungroup(mask_rec)
+        rec, rec_mask = {}, {}
+        for name, spec in plan.mod_specs.items():
+            tokens_only = not return_pixels and spec.len_bands == 1
+            rec[name], rec_mask[name] = self.pixelify[spec.name_embed](
+                x_mod[name], mask_mod[name], tokens_only=tokens_only,
+            )
+        targets = {name: batch[name] for name in plan.mod_specs}
+        return rec, rec_mask, targets
 
 
 def resolve_device(device) -> torch.device:

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from maestro_tpu_torch.ops.attention import mha_blhd
+from maestro_tpu_torch.ops.attention import mha_qkv
 from maestro_tpu_torch.ops.attn_pool import attentive_pool
 
 LN_EPS = 1e-5
@@ -70,9 +70,9 @@ class Attention(nn.Module):
         b, l, _ = x.shape
         y = layer_norm(x, self.norm, self.dtype)
         qkv = dense(y, self.qkv, self.dtype)
-        # q, k, v are strided views of the fused projection: no copies
-        q, k, v = qkv.view(b, l, 3, self.heads, self.dim_head).unbind(dim=2)
-        out = mha_blhd(q, k, v, sm_scale=self.dim_head**-0.5)
+        # q, k, v are strided views of the fused projection (no copies), and
+        # on the card its gradient arrives as one contiguous tensor
+        out = mha_qkv(qkv.view(b, l, 3, self.heads, self.dim_head), self.dim_head**-0.5)
         return dense(out.reshape(b, l, -1), self.out, self.dtype)
 
 

@@ -31,3 +31,32 @@ def unpatchify_pixels(x: torch.Tensor, patch: int, channels: int) -> torch.Tenso
     x = x.reshape(b, d, h, h, channels, patch, patch)
     x = x.permute(0, 1, 4, 2, 5, 3, 6)  # [B, D, C, h, p, w, p]
     return x.reshape(b, d, channels, h * patch, h * patch)
+
+
+def group_norm_tokens(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm(1) over token layout: normalize over (L, C) per (B, D) slice.
+
+    Equivalent to torch GroupNorm(1, C) on the [B*D, C, h, w] activation map
+    (normalizes jointly over channels and spatial dims), with per-channel
+    affine.
+    """
+    mean = x.mean(dim=(-2, -1), keepdim=True)
+    var = x.var(dim=(-2, -1), keepdim=True, unbiased=False)
+    x = (x - mean) * torch.rsqrt(var + eps)
+    return x * scale + bias
+
+
+def expand_token_mask_to_pixels(
+    mask: torch.Tensor,  # [B, D, L] or [B, D, L, 1] bool token mask (one group)
+    patch: int,
+    channels: int,
+) -> torch.Tensor:
+    """Expand a per-token mask to the pixel grid: -> [B, D, C, H, W]."""
+    if mask.ndim == 4:
+        mask = mask[..., 0]
+    b, d, l = mask.shape
+    h = round(l**0.5)
+    m = mask.reshape(b, d, 1, h, 1, h, 1)
+    m = m.expand(b, d, channels, h, patch, h, patch)
+    return m.reshape(b, d, channels, h * patch, h * patch)

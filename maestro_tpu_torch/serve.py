@@ -23,7 +23,7 @@ import torch
 from maestro_tpu_torch.models.mae import resolve_device
 
 
-def _to_device(model, batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
+def batch_to_device(model, batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
     """What the model reads of ``batch`` (each modality and its dates, the
     reference date), as tensors on ``device``.  Targets and unused modalities
     a loader may put in the batch are not copied to the device."""
@@ -58,7 +58,7 @@ def make_predict_fn(model, phase: str = "finetune") -> Callable:
 
     @torch.inference_mode()
     def predict(batch):
-        return model(_to_device(model, batch, device), phase)
+        return model(batch_to_device(model, batch, device), phase)
 
     return predict
 
@@ -74,7 +74,7 @@ def make_embed_fn(model) -> Callable:
 
     @torch.inference_mode()
     def embed(batch):
-        encoded = model.encode_for_heads(_to_device(model, batch, device))
+        encoded = model.encode_for_heads(batch_to_device(model, batch, device))
         x = model.plan.ungroup(encoded)
         pooled = {
             # mean over tokens accumulated in fp32, result in the compute dtype

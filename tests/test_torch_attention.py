@@ -1,12 +1,15 @@
 """Port of attention (maestro_tpu_torch/ops/attention.py) against the JAX
-package: the einsum tier and the Pallas kernels in interpret mode.
+package: the einsum tier and the Pallas kernels in interpret mode, forward and
+backward.
 
-On the CPU ``mha_blhd`` runs ``mha_blhd_plain``; the CUDA kernel itself is
-held against the plain version on the GPU by chip_smoke.py.
+On the CPU ``mha_blhd`` runs ``mha_blhd_plain``, whose autograd is the
+backward's plain version; the CUDA kernels themselves are held against the
+plain versions on the GPU by chip_smoke.py.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,9 +89,14 @@ def test_bf16_matches_jax():
 
 
 def test_unsupported_head_dim_raises():
+    """The kernels take head dims 32, 64, 96, 128 and refuse others; the plain
+    version, which CPU tensors take, serves any (the test-only micro arch's
+    decoder has 24-dim heads)."""
     q = torch.zeros(1, 8, 2, 48)
     with pytest.raises(ValueError, match="head dim 48"):
-        TA.mha_blhd(q, q, q, 1.0)
+        TA.check_kernel_shape(q)
+    TA.check_kernel_shape(torch.zeros(1, 8, 2, 96))
+    assert TA.mha_blhd(q, q, q, 1.0).shape == q.shape
 
 
 def test_mismatched_inputs_raise():
@@ -104,3 +112,64 @@ def test_cpu_tensors_launch_no_kernel():
     q = torch.from_numpy(rng_normal(1, 1, 8, 2, 32))
     TA.mha_blhd(q, q, q, 1.0)
     assert TA.launch_count == before
+
+
+def _grads_jax(fn, q, k, v, dout):
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+def _grads_port(q, k, v, dout, d):
+    qkv = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    TA.mha_blhd(*qkv, d**-0.5).backward(torch.from_numpy(dout))
+    return [to_np(t.grad) for t in qkv]
+
+
+def _assert_grads_close(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * np.abs(w).max())
+
+
+@pytest.mark.parametrize(("l", "h", "d"), [(50, 2, 32), (100, 2, 24), (130, 2, 64)])
+def test_plain_gradients_match_jax(l, h, d):
+    """The plain version's autograd (the backward kernel's plain version)
+    against jax.vjp through the JAX package's mha_blhd, fp32 (rtol 1e-5,
+    atol 1e-5 of the largest gradient)."""
+    q, k, v = _qkv(l, h, d, seed=20)
+    dout = rng_normal(23, 2, l, h, d)
+    want = _grads_jax(lambda a, b, c: JA.mha_blhd(a, b, c, d**-0.5), q, k, v, dout)
+    _assert_grads_close(_grads_port(q, k, v, dout, d), want)
+
+
+def test_plain_gradients_match_packed_backward_kernel(monkeypatch):
+    """...and against the Pallas backward (_pk_bwd_kernel) in interpret mode."""
+    monkeypatch.setattr(JA, "INTERPRET", True)
+    l, h, d = 130, 2, 64
+    q, k, v = _qkv(l, h, d, seed=30)
+    dout = rng_normal(33, 2, l, h, d)
+    want = _grads_jax(
+        lambda a, b, c: JA.packed_single_block_attention(a, b, c, d**-0.5), q, k, v, dout)
+    _assert_grads_close(_grads_port(q, k, v, dout, d), want)
+
+
+def test_mha_qkv_and_logsumexp():
+    """The fused-projection entry agrees with mha_blhd on its views, value
+    and gradient; the saved logsumexp agrees with JAX's."""
+    b, l, h, d = 2, 40, 2, 32
+    qkv = torch.from_numpy(rng_normal(40, b, l, 3, h, d)).requires_grad_(True)
+    out = TA.mha_qkv(qkv, d**-0.5)
+    dout = torch.from_numpy(rng_normal(41, b, l, h, d))
+    out.backward(dout)
+    views = qkv.detach().clone().requires_grad_(True)
+    ref = TA.mha_blhd(*views.unbind(dim=2), d**-0.5)
+    ref.backward(dout)
+    assert torch.equal(out, ref)
+    assert torch.equal(qkv.grad, views.grad)
+    assert torch.equal(TA.mha_qkv_plain(qkv, d**-0.5), out)
+    q, k = qkv.detach()[:, :, 0], qkv.detach()[:, :, 1]
+    logits = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q.numpy()), jnp.asarray(k.numpy()))
+    want = jax.nn.logsumexp(logits * d**-0.5, axis=-1)
+    np.testing.assert_allclose(to_np(TA.logsumexp_plain(q, k, d**-0.5)), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="3, H, D"):
+        TA.mha_qkv(qkv.detach()[:, :, :2], 1.0)

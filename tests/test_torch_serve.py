@@ -148,7 +148,7 @@ def test_predict_rejects_other_phases_and_models(treesat):
         make_predict_fn(model, "pretrain")
     with pytest.raises(TypeError, match="MaestroMAE"):
         make_embed_fn(torch.nn.Linear(2, 2))
-    with pytest.raises(NotImplementedError, match="pretrain"):
+    with pytest.raises(ValueError, match="generator"):  # pretrain draws masks
         model({k: torch.from_numpy(v) for k, v in batch.items()}, "pretrain")
 
 
