@@ -14,7 +14,15 @@ group fusion, 3 trunk blocks, bf16 compute, fp32 parameters):
 * pretraining — ``train.steps.make_pretrain_step`` (token-space l1_norm loss,
   AdamW with the closed-form OneCycle schedule): three steps at batch 8
   through the kernels and through the plain versions from the same weights
-  and masks, with launch counts per step; then timed steps at batch 48.
+  and masks, with launch counts per step; then timed steps at batch 48;
+* finetuning and probing — ``train.steps.make_supervised_step`` (the
+  ``cosia`` segmentation head, 15 classes, its date pool over 26 dates):
+  three steps of each phase at batch 8 through the kernels and through the
+  plain versions from the same weights, with launch counts per step and the
+  step-1 gradients (all trained parameters, the pool's, the encoders') held
+  against the plain path by cosine; then timed steps
+  at the JAX bench's batches (finetune 32 with 4 ref rows a head chunk, probe
+  48 with 2), the EMA update and the batch-32 EMA eval step.
 
 Output: one JSON object per line.  The second-to-last line is the
 ``{"kernels": [...]}`` record, the last line
@@ -53,6 +61,14 @@ ATTN_TOL = {torch.bfloat16: 4 * BF16_ULP, torch.float32: 1e-4}
 ATTN_BWD_TOL = ATTN_TOL
 LSE_ABS_TOL = 1e-3
 POOL_TOL = {torch.bfloat16: 4 * BF16_ULP, torch.float32: 0.1}  # fp32 x: bf16 matmul operands
+# pool backward vs fp32 autograd of the plain version on the same inputs: dx
+# per element at 8 bf16 ulp of (|want| + rms(want)) for both dtypes (y, W_kv
+# and [dk, dv] are bf16 operands and the pivot reads the saved bf16 out; an
+# H100 read at most 0.038 x (|want| + rms), 0.61 of this); the four parameter
+# gradients, sums over 10^4-10^5 rows, by relative norm (an H100 read at most
+# 5.8e-3)
+POOL_BWD_DX_TOL = 2 * 4 * BF16_ULP
+POOL_BWD_PARAM_RTOL = 2e-2
 POOL_STATS_TOL = {torch.bfloat16: 1e-3, torch.float32: 5e-2}
 # fused loss: sums differ from the plain version by summation order only
 LOSS_SUM_RTOL = 1e-4
@@ -68,30 +84,47 @@ ARGMAX_AGREE_MIN = 0.97
 # relative norm |p1 - p0| / |p0| of the update of step 1
 STEP_LOSS_RTOL = 1e-3  # an H100 read 3.4e-6
 STEP_UPDATE_RTOL = 0.05
+# step-1 gradients, kernel path vs plain path: the seg head pool's parameters,
+# every trained parameter, and (finetune) the encoders' alone; an H100 read
+# 0.999999 for the first two
+GRAD_COS_MIN = 0.99
 
 ATTN_CHECK_LENGTHS = (50, 200, 256, 400, 1024, 1880)
 ATTN_CHECK_HEADS = ((6, 128), (12, 64), (3, 64), (16, 32), (8, 96))
 ATTN_CHECK_BATCH = {(6, 128): 8}  # the serving path's heads at its largest batch; else 2
 # the pretrain path's attention shapes at batch 8 (kept tokens 50..470 in the
 # encoders and the trunk, full lengths in the decoders), then the other head
-# dims and a length past 1536
+# dims, a length past 1536 and the full-length trunk of the supervised steps
 BWD_CHECK_SHAPES = (
     [(8, l, 6, 128) for l in (50, 64, 100, 256, 470)]
     + [(8, l, 4, 128) for l in (200, 256, 400, 1024)]
     + [(2, 200, 12, 64), (2, 130, 16, 32), (2, 100, 8, 96), (2, 1600, 4, 128)]
+    + [(2, 1880, 6, 128)]  # the finetune step's trunk, full length
 )
 # head dims 96, 96, 16, 48, 128: every one attn_pool.cu is built for
 POOL_CHECK_SHAPES = ((8, 26, 64, 768), (8, 26, 128, 768), (2, 2, 40, 128),
                      (2, 5, 64, 384), (2, 3, 40, 1024))
 POOL_HEADS = 8
+# (shape, dx wanted): the finetune and probe pool shapes at batch 8, then head
+# dims 16, 48, 128 with 5 or 26 dates and ragged L, then dx skipped (probe)
+POOL_BWD_CHECK_CASES = (((8, 26, 128, 768), True), ((8, 26, 64, 768), True),
+                        ((2, 5, 40, 128), True), ((2, 26, 33, 384), True),
+                        ((2, 5, 40, 1024), True), ((8, 26, 64, 768), False))
 REQUEST_BATCHES = (1, 4, 8)
 ATTN_PER_REQUEST = 39  # 4 streams x 9 blocks + 3 trunk blocks
 POOL_PER_REQUEST = 16  # ref grid 32 rows / seg_chunk_rows 2
 # per pretrain step: 4 x 9 encoder + 3 trunk + 4 x 3 decoder blocks; 5 modalities
 ATTN_PER_STEP = 51
 LOSS_PER_STEP = 5
-CHECK_BATCH, TRAIN_BATCHES = 8, (48, 32, 24, 16)
+CHECK_BATCH, TRAIN_BATCH = 8, 48  # the JAX bench's pretrain batch
 WARMUP_STEPS, TIMED_STEPS = 2, 10
+# per supervised step: 39 attention launches (4 x 9 encoder + 3 trunk blocks,
+# full-length streams); the seg head's pool once per chunk of ref rows
+SUP_CHUNK = {"finetune": 4, "probe": 2}  # the JAX bench's seg_chunk_rows
+SUP_BATCH = {"finetune": 32, "probe": 48}  # the JAX bench's batches
+SUP_LAUNCHES = {"finetune": (39, 39, 8, 8), "probe": (39, 0, 16, 16)}
+SUP_COUNTERS = ("attention_fwd", "attention_bwd", "pool_fwd", "pool_bwd")
+FLAIR_TOKENS = 1880
 
 
 def emit(obj: dict) -> None:
@@ -228,6 +261,24 @@ def loss_bound(n: int, f: int, size: int, backward: bool) -> tuple[float, str]:
 def pool_bound(b: int, d: int, l: int, e: int, heads: int) -> tuple[float, str]:
     nbytes = b * d * l * e * 2 + b * l * e * 2 + 2 * b * l * heads * 4 + 2 * e * e * 2 + 3 * e * 4
     return bound(nbytes, 4 * b * d * l * e * e, PEAK_BF16_FLOPS)
+
+
+def pool_bwd_bound(b: int, d: int, l: int, e: int, heads: int) -> tuple[float, str]:
+    # reads x, out, g (bf16), m, den (fp32) and the parameters; writes dx (bf16)
+    # and the four fp32 parameter gradients; B*D*L*(12E^2 + 8EH + 25E)
+    # operations (the JAX package's _bwd_cost)
+    nbytes = (2 * b * d * l * e * 2 + 2 * b * l * e * 2 + 2 * b * l * heads * 4
+              + 2 * e * e * (2 + 4) + 3 * e * 4 * 2)
+    return bound(nbytes, b * d * l * (12 * e * e + 8 * e * heads + 25 * e), PEAK_BF16_FLOPS)
+
+
+def plain_pool(attn_pool):
+    """The plain pool with the signature ``models.vit`` calls (differentiable
+    through autograd)."""
+    def pool(x, ln_scale, ln_bias, w_kv, query, heads, eps=1e-5, w_kv_bf16=None):
+        del w_kv_bf16
+        return attn_pool.attentive_pool_plain(x, ln_scale, ln_bias, w_kv, query, heads, eps)
+    return pool
 
 
 def pool_inputs(shape, dtype, gen):
@@ -379,6 +430,46 @@ def loss_checks(fused_loss, plan, gen) -> tuple[float, float]:
     return sum_err, grad_err
 
 
+def pool_bwd_checks(attn_pool, gen) -> float:
+    """Pool backward (through the autograd Function, kernels both ways) vs
+    fp32 autograd of the plain version on the same inputs; returns the bf16
+    max abs err of dx at the finetune shape."""
+    dx_err = 0.0
+    names = ("d_ln_scale", "d_ln_bias", "d_w_kv", "d_query")
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, need_dx in POOL_BWD_CHECK_CASES:
+            x, *params = pool_inputs(shape, dtype, gen)
+            x.requires_grad_(need_dx)
+            params = [p.requires_grad_(True) for p in params]
+            out, _, _ = attn_pool.attentive_pool(x, *params, POOL_HEADS)
+            g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+            got = torch.autograd.grad(out, ([x] if need_dx else []) + params, g)
+            torch.cuda.synchronize()
+            ref_x = x.detach().float().requires_grad_(need_dx)
+            ref_p = [p.detach().clone().requires_grad_(True) for p in params]
+            ref, _, _ = attn_pool.attentive_pool_plain(ref_x, *ref_p, POOL_HEADS)
+            want = torch.autograd.grad(ref, ([ref_x] if need_dx else []) + ref_p, g.float())
+            label = f"pool bwd {shape} {dtype} dx={need_dx}"
+            row = {"check": "attentive_pool_bwd", "dtype": str(dtype), "shape": list(shape),
+                   "heads": POOL_HEADS, "dx_wanted": need_dx,
+                   "dx_tolerance_x_abs_plus_rms": POOL_BWD_DX_TOL,
+                   "param_grad_rel_norm_tolerance": POOL_BWD_PARAM_RTOL}
+            if need_dx:
+                max_abs, over = check_close(label + " dx", got[0], want[0], POOL_BWD_DX_TOL)
+                row["dx"] = {"max_abs_err": max_abs, "max_err_over_tolerance": over}
+                if dtype == torch.bfloat16 and shape == POOL_BWD_CHECK_CASES[0][0]:
+                    dx_err = max_abs
+            for name, gk, gw in zip(names, got[-4:], want[-4:]):
+                rel = ((gk.float() - gw).norm() / gw.norm()).item()
+                if not (torch.isfinite(gk).all() and rel <= POOL_BWD_PARAM_RTOL):
+                    raise AssertionError(f"{label} {name}: relative norm error {rel}")
+                row[name] = {"rel_norm_err": rel, "max_abs_err": (gk.float() - gw).abs().max().item()}
+            emit(row)
+            del x, params, out, g, got, ref_x, ref_p, ref, want
+    emit({"check": "attentive_pool_bwd", "cases": 2 * len(POOL_BWD_CHECK_CASES), "ok": True})
+    return dx_err
+
+
 def serving_phase(model, batches, predict, attention, attn_pool, vit, want_profile) -> dict:
     """Requests through the kernels (counts from 0), latency, plain-path agreement."""
     attention.launch_count = 0
@@ -428,7 +519,7 @@ def serving_phase(model, batches, predict, attention, attn_pool, vit, want_profi
     # the same model through the plain versions, on the card
     kernel_fns = (vit.mha_qkv, vit.attentive_pool)
     vit.mha_qkv = attention.mha_qkv_plain
-    vit.attentive_pool = attn_pool.attentive_pool_plain
+    vit.attentive_pool = plain_pool(attn_pool)
     try:
         count_before = (attention.launch_count, attn_pool.launch_count)
         for b in REQUEST_BATCHES:
@@ -458,7 +549,7 @@ def serving_phase(model, batches, predict, attention, attn_pool, vit, want_profi
 
 def train_phase(datasets, card: str, want_profile: bool) -> dict:
     """Pretrain steps: kernel path vs plain path at batch 8 (counts from 0),
-    then timed steps at the largest batch of TRAIN_BATCHES that fits."""
+    then timed steps at the JAX bench's batch, TRAIN_BATCH."""
     from maestro_tpu_torch.conf import MaskConfig, ModelConfig, OptPretrainConfig
     from maestro_tpu_torch.models import vit
     from maestro_tpu_torch.models.mae import build_model
@@ -537,52 +628,41 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
     del model, state, step, update_k, update_p
     torch.cuda.empty_cache()
 
-    # ---- (b) timed steps at the bench's batch (48) or the largest that fits.
+    # ---- (b) timed steps at the bench's batch (48); an OOM fails the script.
     # The batch is staged on the card once, as a prefetching loader (and the
     # JAX package's bench) has it; steps run back to back, the host syncs
     # once at the end, and each step's period is read between CUDA events
     # recorded as it starts (the device timeline, host stalls included).
-    timed = None
-    for bsz in TRAIN_BATCHES:
-        try:
-            model, plan, state, step = fresh(bsz)
-            batch = {k: torch.from_numpy(v).cuda()
-                     for k, v in make_synthetic_batch(datasets.dataset, bsz, seed=1).items()}
-            for _ in range(WARMUP_STEPS):
-                state, logs = step(state, batch, 0)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
-            losses = []
-            t0 = time.perf_counter()
-            for i in range(TIMED_STEPS):
-                marks[i].record()
-                state, logs = step(state, batch, 0)
-                losses.append(logs["loss_rec"])
-            marks[-1].record()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-            times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
-            losses = [x.item() for x in losses]
-            peak_mem = torch.cuda.max_memory_allocated()
-            # the same steps as a plain loop has them: the numpy batch copied
-            # in every step, the loss read after every step (host clock)
-            host_batch = make_synthetic_batch(datasets.dataset, bsz, seed=1)
-            synced = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                state, logs = step(state, host_batch, 0)
-                logs["loss_rec"].item()
-                synced.append((time.perf_counter() - t0) * 1e3)
-            timed = (bsz, times, losses, peak_mem, wall_ms, synced)
-            break
-        except torch.cuda.OutOfMemoryError:
-            emit({"train_batch_does_not_fit": bsz})
-            model = state = step = None
-            torch.cuda.empty_cache()
-    if timed is None:
-        raise AssertionError(f"no batch of {TRAIN_BATCHES} fits")
-    bsz, times, losses, peak_mem, wall_ms, synced = timed
+    bsz = TRAIN_BATCH
+    model, plan, state, step = fresh(bsz)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_synthetic_batch(datasets.dataset, bsz, seed=1).items()}
+    for _ in range(WARMUP_STEPS):
+        state, logs = step(state, batch, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        marks[i].record()
+        state, logs = step(state, batch, 0)
+        losses.append(logs["loss_rec"])
+    marks[-1].record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    losses = [x.item() for x in losses]
+    peak_mem = torch.cuda.max_memory_allocated()
+    # the same steps as a plain loop has them: the numpy batch copied
+    # in every step, the loss read after every step (host clock)
+    host_batch = make_synthetic_batch(datasets.dataset, bsz, seed=1)
+    synced = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, logs = step(state, host_batch, 0)
+        logs["loss_rec"].item()
+        synced.append((time.perf_counter() - t0) * 1e3)
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite train losses {losses}")
     step_ms = statistics.median(times)
@@ -591,8 +671,7 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
     flops_real = flops + decoder_mlp_undercount(plan, model.arch, bsz)
     peak = next((v for k, v in BF16_PEAK_BY_NAME.items() if k in card), None)
     emit({"train_step": {
-        "batch": bsz, "batch_note": "the bench's batch" if bsz == 48 else "largest that fits",
-        "remat": False, "step_ms_median": step_ms, "step_ms_all": times,
+        "batch": bsz, "remat": False, "step_ms_median": step_ms, "step_ms_all": times,
         "host_clock_ms_per_step": wall_ms,
         "step_ms_numpy_batch_and_loss_read_every_step": synced,
         "tokens_per_sample": tokens, "tokens_per_s": tokens * bsz / (step_ms / 1e3),
@@ -607,6 +686,204 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
     del model, state, step
     torch.cuda.empty_cache()
     return {"launches": launches, "batch": bsz, "plan": plan}
+
+
+def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
+    """Finetune and probe steps: kernel path vs plain path at batch 8 (counts
+    from 0 for each path), then timed steps at the JAX bench's batch, the EMA
+    update and the EMA eval step."""
+    from maestro_tpu_torch.conf import MaskConfig, ModelConfig, OptFinetuneConfig, OptProbeConfig
+    from maestro_tpu_torch.models import vit
+    from maestro_tpu_torch.models.mae import build_model
+    from maestro_tpu_torch.ops import attention, attn_pool
+    from maestro_tpu_torch.train.optim import make_optimizer
+    from maestro_tpu_torch.train.state import TrainState, ema_update
+    from maestro_tpu_torch.train.steps import (
+        init_metric_states,
+        make_supervised_eval_step,
+        make_supervised_step,
+    )
+    from maestro_tpu_torch.utils.flops import mae_model_flops
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    opt_cls = {"finetune": OptFinetuneConfig, "probe": OptProbeConfig}
+
+    def fresh(phase: str, batch_size: int, use_ema: bool = False):
+        model, plan = build_model(
+            datasets, MaskConfig(),
+            ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3,
+                        seg_chunk_rows=SUP_CHUNK[phase]),
+            dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(0),
+        )
+        tx = make_optimizer(opt_cls[phase](batch_size=batch_size), phase, 1000, model)
+        return (model, plan, TrainState.create(model, tx, use_ema=use_ema),
+                make_supervised_step(model, phase, tx))
+
+    def counts():
+        return (attention.launch_count, attention.bwd_launch_count,
+                attn_pool.launch_count, attn_pool.bwd_launch_count)
+
+    def zero_counts():
+        attention.launch_count = attention.bwd_launch_count = 0
+        attn_pool.launch_count = attn_pool.bwd_launch_count = 0
+
+    def run(model, state, step, batch):
+        """Losses and launches per step; the update of step 1, the norm of the
+        trained parameters before it, the step-1 gradients of every trained
+        parameter (fp32, flat, by name; zeros where none came) and the
+        parameters of the frozen roles before and after."""
+        names = {id(p): n for n, p in model.named_parameters()}
+        trained = [p for g in state.tx.adamw.param_groups for p in g["params"]]
+        frozen = {n: p for n, p in model.named_parameters()
+                  if not any(p is q for q in trained)}
+        frozen0 = {n: p.detach().clone() for n, p in frozen.items()}
+        p0 = torch.cat([p.detach().flatten() for p in trained])
+        metrics = init_metric_states(model.head_specs)
+        losses, per_step = [], []
+        for i in range(3):
+            before = counts()
+            state, metrics, logs = step(state, batch, metrics)
+            losses.append(logs["loss_pred"].item())
+            per_step.append([a - b for a, b in zip(counts(), before)])
+            if i == 0:
+                update = torch.cat([p.detach().flatten() for p in trained]) - p0
+                grads = {names[id(p)]: torch.zeros(p.numel(), device=p.device) if p.grad is None
+                         else p.grad.detach().float().flatten() for p in trained}
+        unchanged = all(torch.equal(p, frozen0[n]) for n, p in frozen.items())
+        cm = int(metrics["cosia"]["cm"].sum())
+        return losses, update, per_step, p0.norm().item(), grads, unchanged, cm
+
+    # the gradients the cosines are taken over: every trained parameter, the
+    # seg head's pool (fault 1 cut these), and in finetune the encoders alone
+    # (the pool's dx is their only way to the loss)
+    grad_sets = {
+        "all": lambda n: True,
+        "pool": lambda n: n.startswith("heads.cosia.reduce.")
+        and not n.startswith("heads.cosia.reduce.norm_fc"),
+        "backbone": lambda n: not n.startswith("heads."),
+    }
+
+    def flat(grads, keep):
+        return torch.cat([g for n, g in sorted(grads.items()) if keep(n)])
+
+    out = {"launches": {}, "timed": {}}
+    kernel_fns = (vit.mha_qkv, vit.attentive_pool)
+    for phase in ("finetune", "probe"):
+        # ---- (a) kernel path vs plain path, same weights, batch 8
+        batch = make_synthetic_batch(datasets.dataset, CHECK_BATCH, seed=0)
+        model, _, state, step = fresh(phase, CHECK_BATCH)
+        zero_counts()
+        losses_k, update_k, per_step, norm0, grads_k, unchanged_k, cm = run(
+            model, state, step, batch)
+        launches = dict(zip(SUP_COUNTERS, counts()))
+        want = list(SUP_LAUNCHES[phase])
+        if any(n != want for n in per_step) or any(
+                launches[k] == 0 for k, w in zip(SUP_COUNTERS, want) if w):
+            raise AssertionError(f"{phase} step launches {per_step}, expected {want} per step")
+        out["launches"][phase] = launches
+        del model, state, step
+        model, _, state, step = fresh(phase, CHECK_BATCH)
+        vit.mha_qkv, vit.attentive_pool = attention.mha_qkv_plain, plain_pool(attn_pool)
+        try:
+            losses_p, update_p, per_step_p, _, grads_p, unchanged_p, cm_p = run(
+                model, state, step, batch)
+        finally:
+            vit.mha_qkv, vit.attentive_pool = kernel_fns
+        if any(any(n) for n in per_step_p):
+            raise AssertionError("the plain path launched a kernel")
+        rel_k, rel_p = update_k.norm().item() / norm0, update_p.norm().item() / norm0
+        cos = torch.nn.functional.cosine_similarity(update_k, update_p, dim=0).item()
+        grad_check = {}
+        for key, keep in grad_sets.items():
+            if key == "backbone" and phase == "probe":
+                continue  # probe trains the heads only
+            gk, gp = flat(grads_k, keep), flat(grads_p, keep)
+            grad_check[key] = {
+                "norm_kernel": gk.norm().item(), "norm_plain": gp.norm().item(),
+                "cosine": torch.nn.functional.cosine_similarity(gk, gp, dim=0).item()}
+        loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+        emit({"supervised_agreement": {
+            "phase": phase, "batch": CHECK_BATCH, "seg_chunk_rows": SUP_CHUNK[phase],
+            "loss_kernel_path": losses_k, "loss_plain_path": losses_p,
+            "loss_rel_err": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+            "step1_update_rel_norm_kernel": rel_k, "step1_update_rel_norm_plain": rel_p,
+            "update_rel_norm_rtol": STEP_UPDATE_RTOL, "step1_update_cosine": cos,
+            "step1_grads": grad_check, "step1_grad_cosine_min": GRAD_COS_MIN,
+            "frozen_roles_unchanged": unchanged_k, "metric_pixels_counted": cm,
+            "launches_per_step": dict(zip(SUP_COUNTERS, per_step[0]))}})
+        if not all(e <= STEP_LOSS_RTOL for e in loss_rel) or not all(map(math.isfinite, losses_k)):
+            raise AssertionError(f"{phase} losses disagree: {losses_k} vs {losses_p}")
+        if not abs(rel_k - rel_p) <= STEP_UPDATE_RTOL * rel_p:
+            raise AssertionError(f"{phase} step-1 updates disagree: {rel_k} vs {rel_p}")
+        for key, got in grad_check.items():
+            if not (got["norm_kernel"] > 0 and got["cosine"] >= GRAD_COS_MIN):
+                raise AssertionError(f"{phase}: the step-1 gradients ({key}) are off: {got}")
+        if not (unchanged_k and unchanged_p):
+            raise AssertionError(f"{phase}: a frozen parameter changed")
+        if cm != cm_p or cm != 3 * CHECK_BATCH * 512 * 512:
+            raise AssertionError(f"{phase}: metric states counted {cm} and {cm_p} pixels")
+        del model, state, step, update_k, update_p, grads_k, grads_p, gk, gp
+        torch.cuda.empty_cache()
+
+        # ---- (b) timed steps at the JAX bench's batch (staged on the card
+        # once, as in the pretrain phase); an OOM fails the script
+        bsz = SUP_BATCH[phase]
+        model, plan, state, step = fresh(phase, bsz, use_ema=phase == "finetune")
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in make_synthetic_batch(datasets.dataset, bsz, seed=1).items()}
+        metrics = init_metric_states(model.head_specs)
+        for _ in range(WARMUP_STEPS):
+            state, metrics, logs = step(state, batch, metrics)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+        losses = []
+        for i in range(TIMED_STEPS):
+            marks[i].record()
+            state, metrics, logs = step(state, batch, metrics)
+            losses.append(logs["loss_pred"])
+        marks[-1].record()
+        torch.cuda.synchronize()
+        times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        losses = [x.item() for x in losses]
+        peak_mem = torch.cuda.max_memory_allocated()
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"non-finite {phase} losses {losses}")
+        step_ms = statistics.median(times)
+        flops = mae_model_flops(plan, model.arch, model.inter_depth, phase, bsz,
+                                model.head_specs, datasets.dataset.ref_input)
+        peak = next((v for k, v in BF16_PEAK_BY_NAME.items() if k in card), None)
+        row = {"phase": phase, "batch": bsz, "seg_chunk_rows": SUP_CHUNK[phase],
+               "remat": False,
+               "step_ms_median": step_ms, "step_ms_all": times,
+               "tokens_per_sample": FLAIR_TOKENS, "tokens_per_s": FLAIR_TOKENS * bsz / (step_ms / 1e3),
+               "model_flops_per_step": flops, "peak_bf16_flops": peak, "peak_from": card,
+               "mfu": None if peak is None else flops / (step_ms / 1e3) / peak,
+               "peak_memory_bytes": peak_mem, "losses": losses}
+        if phase == "finetune":
+            ema_ms = time_ms(lambda: ema_update(state, 0.9), 10)
+            evaluate = make_supervised_eval_step(model, "finetune", use_ema=True)
+            eval_metrics = init_metric_states(model.head_specs)
+            for _ in range(2):
+                evaluate(state, batch, eval_metrics)
+            torch.cuda.synchronize()
+            eval_ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                evaluate(state, batch, eval_metrics)
+                torch.cuda.synchronize()
+                eval_ms.append((time.perf_counter() - t0) * 1e3)
+            row.update({"ema_update_ms": ema_ms, "ema_params": sum(t.numel() for t in state.ema.values()),
+                        "ema_eval_step_ms_median": statistics.median(eval_ms),
+                        "ema_eval_step_ms_all": eval_ms})
+        emit({"supervised_step": row})
+        out["timed"][phase] = row
+        if want_profile:
+            emit({"profile": {"path": phase, "batch": bsz, **profile_device(
+                lambda: step(state, batch, metrics), step_ms)}})
+        del model, state, step, batch, metrics
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -675,6 +952,7 @@ def main() -> None:
                   "den_max_abs_err": den_err})
             if dtype == torch.bfloat16 and shape == POOL_CHECK_SHAPES[0]:
                 pool_err = max_abs
+    pool_bwd_err = pool_bwd_checks(attn_pool, gen)
     model_cfg = ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3)
     model, plan = build_model(
         datasets, MaskConfig(), model_cfg, dtype=torch.bfloat16, device="cuda",
@@ -705,6 +983,10 @@ def main() -> None:
     train = train_phase(datasets, card, want_profile)
     train_batch = train["batch"]
 
+    # ---- 5c. the finetune and probe paths
+    sup = supervised_phase(datasets, card, want_profile)
+    sl = sup["launches"]
+
     # ---- 6. kernel times at the main paths' shapes, back to back
     # (inputs stay warm in L2, as they are right after the qkv projection)
     shapes = [(length, depth) for length in stream_lengths.values()]
@@ -732,6 +1014,62 @@ def main() -> None:
     pool_ms = time_ms(lambda: attn_pool.attentive_pool(*pargs, POOL_HEADS), 20)
     pool_plain_ms = time_ms(lambda: attn_pool.attentive_pool_plain(*pargs, POOL_HEADS), 5)
     pool_bound_ms, pool_bound_by = pool_bound(*pool_shape, POOL_HEADS)
+    del pargs
+    # the pool at the supervised steps' shapes: forward at the finetune shape,
+    # backward at the finetune and probe shapes (ref rows per chunk x grid 32)
+    ft_shape = (sup["timed"]["finetune"]["batch"], 26, SUP_CHUNK["finetune"] * 32, 768)
+    pr_shape = (sup["timed"]["probe"]["batch"], 26, SUP_CHUNK["probe"] * 32, 768)
+    pargs = pool_inputs(ft_shape, torch.bfloat16, gen)
+    w16 = pargs[3].to(torch.bfloat16)
+    pool_ft_ms = time_ms(lambda: attn_pool.attentive_pool(*pargs, POOL_HEADS, w_kv_bf16=w16), 10)
+    pool_ft_plain_ms = time_ms(lambda: attn_pool.attentive_pool_plain(*pargs, POOL_HEADS), 3,
+                               warmup=1)
+    pool_ft_bound_ms, _ = pool_bound(*ft_shape, POOL_HEADS)
+    del pargs, w16
+    pool_bwd_rows = []
+    for shape, phase in ((ft_shape, "finetune"), (pr_shape, "probe")):
+        x, sc, bi, w, q = pool_inputs(shape, torch.bfloat16, gen)
+        w16 = w.to(torch.bfloat16)
+        out, m, den = attn_pool.attentive_pool(x, sc, bi, w, q, POOL_HEADS, w_kv_bf16=w16)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+        need_dx = phase == "finetune"  # the probe phase's pool input needs no gradient
+        ms = time_ms(lambda: attn_pool.attentive_pool_bwd(
+            x, sc, bi, w16, q, out, m, den, g, POOL_HEADS, need_dx=need_dx), 10)
+        plain_ms = time_ms(lambda: attn_pool.attentive_pool_bwd_plain(
+            x, sc, bi, w, q, out, m, den, g, POOL_HEADS, need_dx=need_dx), 3, warmup=1)
+        bound_ms, bound_by = pool_bwd_bound(*shape, POOL_HEADS)
+        pool_bwd_rows.append({"shape": list(shape), "phase": phase, "dx": need_dx,
+                              "launches_per_step": SUP_LAUNCHES[phase][3], "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        del x, sc, bi, w, q, w16, out, m, den, g
+    torch.cuda.empty_cache()
+    # the finetune step's attention backward at full length: the trunk and the
+    # aerial stream, SDPA's backward beside it
+    ft_bwd_rows = []
+    ft_batch = sup["timed"]["finetune"]["batch"]
+    for length, count in ((sum(stream_lengths.values()), inter_depth),
+                          (max(stream_lengths.values()), depth)):
+        scale = dim_head**-0.5
+        qkv = qkv_fused(ft_batch, length, heads, dim_head, torch.bfloat16, gen)
+        q, k, v = qkv.unbind(dim=2)
+        out, lse = attention._fwd(q, k, v, scale, with_lse=True)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        ms = time_ms(lambda: attention._bwd(q, k, v, out, lse, dout, scale), 5)
+        plain_in = qkv.detach().requires_grad_(True)
+        plain_out = attention.mha_qkv_plain(plain_in, scale)
+        plain_ms = time_ms(lambda: torch.autograd.grad(plain_out, plain_in, dout,
+                                                       retain_graph=True), 2, warmup=1)
+        del plain_in, plain_out
+        lib_in = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_in, scale=scale)
+        dout_t = dout.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout_t, retain_graph=True), 5)
+        bound_ms, bound_by = attention_bwd_bound(ft_batch, length, heads, dim_head, torch.bfloat16)
+        ft_bwd_rows.append({"shape": [ft_batch, length, heads, dim_head], "calls_per_step": count,
+                            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by})
+        del qkv, q, k, v, out, lse, dout, lib_in, lib_out
+        torch.cuda.empty_cache()
 
     # the pretrain step's attention shapes: (length, heads, dim, launches per step)
     kept = [s.seq_len - s.num_masked for s in train["plan"].streams.values()]
@@ -798,7 +1136,8 @@ def main() -> None:
     loss_entry = lambda direction, fn_name, line, launches, err: {  # noqa: E731
         "name": fn_name, "route": "cuda", "source": "maestro_tpu_torch/csrc/fused_loss.cu",
         "replaces": f"maestro_tpu/ops/fused_loss.py:{line}",
-        "launches": launches, "launches_by_path": {"serve": 0, "train": launches},
+        "launches": launches,
+        "launches_by_path": {"serve": 0, "train": launches, "finetune": 0, "probe": 0},
         "max_abs_err": err, **loss_totals[direction],
         "bound_by": max(loss_kinds[direction], key=loss_kinds[direction].get),
         "library_ms": None,
@@ -811,8 +1150,11 @@ def main() -> None:
          "replaces": "maestro_tpu/ops/attention.py:270",
          "also_replaces": ["maestro_tpu/ops/attention.py:488", "maestro_tpu/ops/attention.py:124",
                            "maestro_tpu/ops/attention.py:82"],
-         "launches": serve_launches["attention"] + tl["attention_fwd"],
-         "launches_by_path": {"serve": serve_launches["attention"], "train": tl["attention_fwd"]},
+         "launches": (serve_launches["attention"] + tl["attention_fwd"]
+                      + sl["finetune"]["attention_fwd"] + sl["probe"]["attention_fwd"]),
+         "launches_by_path": {"serve": serve_launches["attention"], "train": tl["attention_fwd"],
+                              "finetune": sl["finetune"]["attention_fwd"],
+                              "probe": sl["probe"]["attention_fwd"]},
          "max_abs_err": attn_err,
          "ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
          "bound_by": max(bound_kinds, key=bound_kinds.get), "library_ms": totals["library_ms"],
@@ -824,8 +1166,11 @@ def main() -> None:
          "replaces": "maestro_tpu/ops/attention.py:289",
          "also_replaces": ["maestro_tpu/ops/attention.py:507", "maestro_tpu/ops/attention.py:141",
                            "maestro_tpu/ops/attention.py:82"],
-         "launches": tl["attention_bwd"],
-         "launches_by_path": {"serve": 0, "train": tl["attention_bwd"]},
+         "launches": (tl["attention_bwd"] + sl["finetune"]["attention_bwd"]
+                      + sl["probe"]["attention_bwd"]),
+         "launches_by_path": {"serve": 0, "train": tl["attention_bwd"],
+                              "finetune": sl["finetune"]["attention_bwd"],
+                              "probe": sl["probe"]["attention_bwd"]},
          "max_abs_err": bwd_err,
          "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
          "bound_ms": bwd_totals["bound_ms"], "bound_by": max(bwd_kinds, key=bwd_kinds.get),
@@ -833,18 +1178,37 @@ def main() -> None:
          "times_are": f"sum over the {ATTN_PER_STEP} calls of one batch-{train_batch} train "
                       "step, bf16; a call is three launches (Delta, dK/dV, dQ); library = "
                       "the backward of scaled_dot_product_attention",
-         "per_shape": bwd_rows},
+         "per_shape": bwd_rows, "finetune_full_length_shapes": ft_bwd_rows},
         loss_entry("fwd", "masked_patchnorm_sums_fwd", 53, tl["loss_fwd"], loss_sum_err),
         loss_entry("bwd", "masked_patchnorm_sums_bwd", 76, tl["loss_bwd"], loss_grad_err),
         {"name": "attentive_pool_fwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/attn_pool.cu",
          "replaces": "maestro_tpu/ops/attn_pool.py:72",
-         "launches": serve_launches["pool"],
-         "launches_by_path": {"serve": serve_launches["pool"], "train": 0},
+         "launches": (serve_launches["pool"] + sl["finetune"]["pool_fwd"]
+                      + sl["probe"]["pool_fwd"]),
+         "launches_by_path": {"serve": serve_launches["pool"], "train": 0,
+                              "finetune": sl["finetune"]["pool_fwd"],
+                              "probe": sl["probe"]["pool_fwd"]},
          "max_abs_err": pool_err,
          "ms": pool_ms, "plain_ms": pool_plain_ms, "bound_ms": pool_bound_ms,
          "bound_by": pool_bound_by, "library_ms": None,
-         "times_are": "one launch at [8, 26, 64, 768] bf16, 8 heads; 16 launches per request"},
+         "times_are": "one launch at [8, 26, 64, 768] bf16, 8 heads; 16 launches per request",
+         "finetune_shape": {"shape": list(ft_shape), "ms": pool_ft_ms,
+                            "plain_ms": pool_ft_plain_ms, "bound_ms": pool_ft_bound_ms}},
+        {"name": "attentive_pool_bwd", "route": "cuda",
+         "source": "maestro_tpu_torch/csrc/attn_pool_bwd.cu",
+         "replaces": "maestro_tpu/ops/attn_pool.py:123",
+         "launches": sl["finetune"]["pool_bwd"] + sl["probe"]["pool_bwd"],
+         "launches_by_path": {"serve": 0, "train": 0, "finetune": sl["finetune"]["pool_bwd"],
+                              "probe": sl["probe"]["pool_bwd"]},
+         "max_abs_err": pool_bwd_err,
+         "ms": pool_bwd_rows[0]["ms"], "plain_ms": pool_bwd_rows[0]["plain_ms"],
+         "bound_ms": pool_bwd_rows[0]["bound_ms"], "bound_by": pool_bwd_rows[0]["bound_by"],
+         "library_ms": None,
+         "times_are": f"one call (five launches) at {list(ft_shape)} bf16, 8 heads, with dx: "
+                      "the finetune step's; max_abs_err is dx's at [8, 26, 128, 768] against fp32 "
+                      "autograd of the plain version",
+         "per_shape": pool_bwd_rows},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,7 +5,9 @@ from maestro_tpu_torch.conf.core import (
     MaskConfig,
     ModelConfig,
     OptConfig,
+    OptFinetuneConfig,
     OptPretrainConfig,
+    OptProbeConfig,
     TrainerConfig,
 )
 from maestro_tpu_torch.conf.dataset.base import (
@@ -31,7 +33,9 @@ __all__ = [
     "MaskConfig",
     "ModelConfig",
     "OptConfig",
+    "OptFinetuneConfig",
     "OptPretrainConfig",
+    "OptProbeConfig",
     "PASTISHDConfig",
     "PatchSizeConfig",
     "RasterConfig",

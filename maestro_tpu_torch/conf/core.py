@@ -2,9 +2,8 @@
 
 Field names and defaults follow the JAX package's ``conf/core.py`` (which
 mirrors the reference config groups opt.py, mask.py, model.py, trainer.py).
-Only the groups and fields that ported code reads are kept: the run, probe /
-finetune optimizer and data-pipeline groups arrive with the slices that
-consume them.
+Only the groups and fields that ported code reads are kept: the run and
+data-pipeline groups arrive with the slices that consume them.
 """
 
 from __future__ import annotations
@@ -30,6 +29,33 @@ class OptPretrainConfig(OptConfig):
     base_lr: float = 3e-5
     epochs: int = 20
     batch_size: int = 32
+
+
+@dataclass
+class OptProbeConfig(OptConfig):
+    base_lr: float = 1e-5
+    epochs: int = 10
+    batch_size: int = 32
+
+
+@dataclass
+class OptFinetuneConfig(OptConfig):
+    """Finetuning optimizer config.
+
+    ``monitor`` examples: ``treesat_mlc_thresh/weighted_f1_val`` (TreeSatAI),
+    ``pastis_seg/average_iou_val`` (PASTIS-HD), ``cosia/average_iou_val``
+    (FLAIR).  ``lw_decay`` is the layer-wise learning-rate decay rate
+    (``train/optim.py::lw_decay_multipliers``); ``monitor`` and ``patience``
+    are read by the runtime, which is not ported yet.
+    """
+
+    base_lr: float = 1e-5
+    epochs: int = 20
+    batch_size: int = 32
+    lw_decay: float | None = None
+    final_factor: float = 2.0
+    monitor: str | None = None
+    patience: int | None = 5
 
 
 @dataclass
@@ -60,6 +86,7 @@ class ModelConfig:
     model_size: str = "tiny"
     type_head: str = "attentive"
     use_date_enc: bool = True
+    use_ema: bool = True
     # attention head-split overrides (None = arch defaults with 128-dim
     # heads; set the reference splits — encoder 12 x 64 for medium, decoder
     # 16 x 32 — when loading ported reference checkpoints)
@@ -74,10 +101,14 @@ class ModelConfig:
 
 @dataclass
 class TrainerConfig:
-    """Execution config: precision policy."""
+    """Execution config: precision policy and the non-finite guard."""
 
     # compute dtype for matmuls/activations; params stay fp32
     compute_dtype: str = "bfloat16"
+    # drop optimizer updates whose gradients contain inf/nan (the JAX
+    # package's optax.apply_if_finite); not ported yet: make_optimizer
+    # refuses it
+    skip_nonfinite: bool = False
 
 
 @dataclass

@@ -309,10 +309,6 @@ class MaestroMAE(nn.Module):
         streams = self.plan.group(tokens)
         return self.encode_streams(streams)
 
-    def logits_from_features(self, feats: dict, phase: str) -> dict:
-        """Heads over precomputed trunk features."""
-        return self.compute_logits(feats, phase)
-
     def compute_logits(self, encoded: dict, phase: str) -> dict[str, torch.Tensor]:
         """Downstream logits: per-target heads over (resized) token grids.
 
@@ -339,7 +335,7 @@ class MaestroMAE(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, batch: dict, phase: str = "finetune", return_pixels: bool = True,
-                *, generator: torch.Generator | None = None):
+                *, generator: torch.Generator | None = None, from_features: bool = False):
         """Forward pass.
 
         probe/finetune -> logits dict per target.  pretrain -> (rec, mask,
@@ -347,7 +343,9 @@ class MaestroMAE(nn.Module):
         rescaled inputs the reconstruction loss compares against; the masks
         are drawn from ``generator`` (required; a CPU generator draws them on
         the host and they are copied to the model's device) by
-        ``ops.masking.draw_masks``.
+        ``ops.masking.draw_masks``.  ``from_features=True`` (probe / finetune)
+        takes ``encode_for_heads`` features for ``batch`` and runs the heads
+        only: the form ``torch.func.functional_call`` can reach.
 
         ``return_pixels=False`` (pretrain only) keeps the reconstruction in
         token space — rec[name] is [B, D, L, C*p*p] in (C, ph, pw) feature
@@ -357,7 +355,15 @@ class MaestroMAE(nn.Module):
         if phase not in PHASES:
             msg = f"Invalid phase {phase!r}; expected {PHASES}."
             raise ValueError(msg)
-        if phase != "pretrain":
+        if from_features:  # batch holds encode_for_heads features
+            return self.compute_logits(batch, phase)
+        if phase == "probe":
+            # the trunk is frozen (stop_gradient in the JAX package): autograd
+            # keeps none of its activations
+            with torch.no_grad():
+                encoded = self.encode_for_heads(batch)
+            return self.compute_logits(encoded, phase)
+        if phase == "finetune":
             return self.compute_logits(self.encode_for_heads(batch), phase)
         if generator is None:
             msg = "the pretrain forward draws its masks from a generator: pass generator="

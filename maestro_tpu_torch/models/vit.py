@@ -139,8 +139,8 @@ class AttentiveReduce(nn.Module):
     The rank-4 form is layout-native for the segmentation head: the caller's
     [B, dates, positions, C] tensor is pooled over the date axis in place.
     Where the shape allows (``_use_fused_pool``) it goes through the fused
-    pool of ops/attn_pool.py; the rank-3 classification pool (one position)
-    and narrow widths take the einsum body.
+    pool of ops/attn_pool.py, forward and backward; the rank-3 classification
+    pool (one position) and narrow widths take the einsum body.
     """
 
     def __init__(self, dim: int, heads: int, dtype: torch.dtype,
@@ -154,13 +154,14 @@ class AttentiveReduce(nn.Module):
         self.norm_fc = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self._kv_bf16: tuple[tuple[int, int], torch.Tensor] | None = None
 
-    def _kv_weight(self, x: torch.Tensor) -> torch.Tensor:
-        """``to_kv.weight`` as the fused pool takes it: on the card, where the
-        kernel multiplies in bf16, a bf16 copy kept until the weight changes
-        (one cast, not one per chunk of every request)."""
-        w = self.to_kv.weight
+    def _kv_weight_bf16(self, x: torch.Tensor) -> torch.Tensor | None:
+        """On the card, where the fused pool multiplies ``to_kv.weight`` in
+        bf16, a bf16 copy kept until the weight changes (one cast, not one per
+        chunk of every request); it is not differentiable, and the pool sends
+        its gradient to the fp32 weight itself."""
         if not x.is_cuda:
-            return w
+            return None
+        w = self.to_kv.weight
         key = (w._version, w.data_ptr())
         if self._kv_bf16 is None or self._kv_bf16[0] != key:
             self._kv_bf16 = (key, w.detach().to(torch.bfloat16))
@@ -185,8 +186,8 @@ class AttentiveReduce(nn.Module):
 
         if self._use_fused_pool(x):
             out, _, _ = attentive_pool(
-                x.to(self.dtype), self.norm.weight, self.norm.bias,
-                self._kv_weight(x), self.query, self.heads, LN_EPS,
+                x.to(self.dtype), self.norm.weight, self.norm.bias, self.to_kv.weight,
+                self.query, self.heads, LN_EPS, w_kv_bf16=self._kv_weight_bf16(x),
             )
             return layer_norm(out, self.norm_fc, self.dtype)
 

@@ -1,15 +1,21 @@
-"""Fused attentive date pool: LayerNorm + kv projection + softmax reduction.
+"""Fused attentive date pool: LayerNorm + kv projection + softmax reduction,
+forward and backward.
 
-``attentive_pool`` launches ``attentive_pool_fwd`` (csrc/attn_pool.cu) for a
-CUDA tensor and runs ``attentive_pool_plain`` for a CPU tensor.
+``attentive_pool`` is differentiable in ``x`` and in the four fp32 parameters
+(``ln_scale``, ``ln_bias``, ``w_kv``, ``query``): an autograd ``Function``
+that, for a CUDA tensor, launches ``attentive_pool_fwd`` (csrc/attn_pool.cu)
+forward and ``attentive_pool_bwd`` (csrc/attn_pool_bwd.cu) backward, and for a
+CPU tensor runs ``attentive_pool_plain`` / ``attentive_pool_bwd_plain``.
 
-Replaces the forward of the JAX package's ``ops/attn_pool.py``
-(``attentive_pool`` / ``_fwd_kernel``) and computes what its
+Replaces the JAX package's ``ops/attn_pool.py`` (``attentive_pool`` with its
+``_fwd_kernel`` and ``_bwd_kernel``) and computes what its
 ``attentive_pool_reference`` computes: for every (batch, position), one learned
-query per head attends over the date axis of ``x [B, D, L, E]``; the final
-``norm_fc`` LayerNorm stays in ``AttentiveReduce``.
+query attends over the date axis of ``x [B, D, L, E]``; the final ``norm_fc``
+LayerNorm stays in ``AttentiveReduce``.  As there, the forward saves
+``(x, out, m, den)`` and the backward takes the softmax pivot from the saved
+``out``: no second sweep over the dates.
 
-What bounds it on an H100: operations.  The kv projection needs
+What bounds the forward on an H100: operations.  The kv projection needs
 ``4*B*D*L*E*E`` operations for ``B*D*L*E`` input elements — 2*E = 1536
 operations per byte of bf16 input at E = 768, far above the card's ~295.  The
 plain version is bound by bytes instead: it writes and re-reads LN(x)
@@ -24,13 +30,17 @@ Per 16-row group, k-warps multiply the k columns into partial logits and
 v-warps multiply the v columns and pool (two warps of each kind when dh is a
 multiple of 32); W_kv streams through a two-stage ``cp.async`` buffer.  A
 block has 32 rows, so that the serving path's 512 rows spread over the SMs.
+The backward's design is written in its source.
 
 Precision: LayerNorm statistics, logits, softmax and the pooled sum are fp32;
 the kv projection runs on the tensor cores with bf16 operands (LN(x) and
 ``w_kv`` rounded to bf16) and fp32 accumulation.  For bf16 ``x`` this is what
 ``attentive_pool_plain`` does too.  For fp32 ``x`` the plain version keeps
 fp32 operands, so kernel and plain version then differ by bf16 operand
-rounding (about 1e-2 relative); the serving path runs bf16.
+rounding (about 1e-2 relative); the serving and training paths run bf16.
+The backward's products take bf16 operands as well (``[dk, dv]`` rounded to
+bf16, as the JAX kernel rounds ``dkv`` to x's dtype); its parameter
+gradients are fp32 sums.
 """
 
 from __future__ import annotations
@@ -43,10 +53,13 @@ import torch
 SUPPORTED_HEAD_DIMS = (16, 48, 96, 128)
 MAX_EMBED_DIM = 1024
 
-launch_count = 0  # incremented once per kernel launch, nowhere else
+launch_count = 0  # incremented once per forward kernel launch, nowhere else
+bwd_launch_count = 0  # once per backward call (its five launches), nowhere else
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _fn = None
+_bwd_fn = None
+_ROW_TILE = 32  # csrc/attn_pool_bwd.cu kRows: rows of one partial-sum block
 
 
 def attentive_pool_plain(
@@ -83,6 +96,69 @@ def attentive_pool_plain(
     return out.reshape(b, l, e).to(x.dtype), m, den
 
 
+
+
+def attentive_pool_bwd_plain(
+    x: torch.Tensor,  # [B, D, L, E]
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w_kv: torch.Tensor,  # [2E, E]
+    query: torch.Tensor,
+    out: torch.Tensor,  # [B, L, E], the saved forward output
+    m: torch.Tensor,  # [B, L, H]
+    den: torch.Tensor,  # [B, L, H]
+    g: torch.Tensor,  # [B, L, E], dLoss/dout
+    heads: int,
+    eps: float = 1e-5,
+    need_dx: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward, step by step as the kernel
+    takes it: ``(dx or None, d_ln_scale, d_ln_bias, d_w_kv, d_query)``.
+
+    The softmax pivot ``T_h = sum_{e in h} g_e out_e`` comes from the saved
+    ``out``; per date, LN and kv are recomputed, ``a = exp(logit - m) / den``,
+    ``dlogit = a (t - T)`` with ``t_h = sum_{e in h} g_e v_e``,
+    ``dv = a g``, ``dk = dlogit query dh^-1/2``, ``dy = [dk, dv] . w_kv`` and
+    the LayerNorm backward gives ``dx``.  Operands of the products are
+    rounded to x's dtype, ``[dk, dv]`` included; everything else is fp32.
+    ``dx`` is in x's dtype, the parameter gradients fp32.
+    """
+    b, d, l, e = x.shape
+    dh = e // heads
+    sm_scale = dh**-0.5
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt((xf - mu).square().mean(dim=-1, keepdim=True) + eps)
+    xhat = (xf - mu) * rstd
+    y = (xhat * ln_scale.float() + ln_bias.float()).to(x.dtype).float()
+    w = w_kv.to(x.dtype).float()
+    k, v = (y @ w.T).split(e, dim=-1)  # [B, D, L, E] each
+    k = k.reshape(b, d, l, heads, dh)
+    v = v.reshape(b, d, l, heads, dh)
+    q = query.float().reshape(heads, dh)
+    logits = torch.einsum("he,bdlhe->bdlh", q, k) * sm_scale
+    a = torch.exp(logits - m[:, None]) / den[:, None]  # [B, D, L, H]
+    gf = g.float().reshape(b, 1, l, heads, dh)
+    pivot = (gf[:, 0] * out.float().reshape(b, l, heads, dh)).sum(dim=-1)  # [B, L, H]
+    dlogit = a * ((gf * v).sum(dim=-1) - pivot[:, None])
+    dk = dlogit[..., None] * q * sm_scale
+    dv = a[..., None] * gf
+    dkv = torch.cat([dk.reshape(b, d, l, e), dv.reshape(b, d, l, e)], dim=-1)
+    dkv = dkv.to(x.dtype).float()
+    dy = dkv @ w  # [B, D, L, E]
+    d_w_kv = dkv.reshape(-1, 2 * e).T @ y.reshape(-1, e)
+    d_query = (dlogit[..., None] * k).sum(dim=(0, 1, 2)).reshape(e) * sm_scale
+    d_scale = (dy * xhat).sum(dim=(0, 1, 2))
+    d_bias = dy.sum(dim=(0, 1, 2))
+    dx = None
+    if need_dx:
+        dxh = dy * ln_scale.float()
+        dx = rstd * (dxh - dxh.mean(dim=-1, keepdim=True)
+                     - xhat * (dxh * xhat).mean(dim=-1, keepdim=True))
+        dx = dx.to(x.dtype)
+    return dx, d_scale, d_bias, d_w_kv, d_query
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -99,21 +175,25 @@ def _kernel():
     return _fn
 
 
-def attentive_pool(
-    x: torch.Tensor,
-    ln_scale: torch.Tensor,
-    ln_bias: torch.Tensor,
-    w_kv: torch.Tensor,
-    query: torch.Tensor,
-    heads: int,
-    eps: float = 1e-5,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``[B, D, L, E] -> out [B, L, E]`` plus the softmax statistics
-    ``m, den [B, L, H]`` (fp32) that a backward pass needs.
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        from maestro_tpu_torch.ops.cuda_build import load_library
 
-    On the card ``w_kv`` is multiplied as bf16: a caller that keeps a bf16
-    copy saves the cast on every launch."""
-    global launch_count
+        fn = load_library("attn_pool_bwd").attentive_pool_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            # x, ln_scale, ln_bias, w_kv, query, out, g, m, den,
+            # dx, dkv, mu, rstd, part_small, dw_part, dw, small_out
+            [ctypes.c_void_p] * 17
+            + [ctypes.c_int] * 5  # B, D, L, E, H
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # eps, splits, dtype, stream
+        )
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+def _check_params(x, ln_scale, ln_bias, w_kv, query, heads) -> None:
     if x.ndim != 4:
         msg = f"x must be [B, D, L, E], got {tuple(x.shape)}"
         raise ValueError(msg)
@@ -134,29 +214,37 @@ def attentive_pool(
             f"{tuple(w_kv.shape)}"
         )
         raise ValueError(msg)
-    if x.device.type == "cpu":
-        return attentive_pool_plain(x, ln_scale, ln_bias, w_kv, query, heads, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         msg = f"attentive_pool runs on cuda or cpu tensors, got {x.device}"
         raise ValueError(msg)
     if any(t.device != x.device for t in (ln_scale, ln_bias, w_kv, query)):
         msg = "attentive_pool: parameters must lie on x's device"
         raise ValueError(msg)
+
+
+def _check_kernel_shape(e: int, heads: int, name: str, multiple: int) -> None:
     dh = e // heads
-    if dh not in SUPPORTED_HEAD_DIMS or e % 64 or e > MAX_EMBED_DIM:
+    if dh not in SUPPORTED_HEAD_DIMS or e % multiple or e > MAX_EMBED_DIM:
         msg = (
-            f"attentive_pool_fwd is built for head dims {SUPPORTED_HEAD_DIMS} and "
-            f"E a multiple of 64 up to {MAX_EMBED_DIM}; got E={e}, heads={heads}"
+            f"{name} is built for head dims {SUPPORTED_HEAD_DIMS} and "
+            f"E a multiple of {multiple} up to {MAX_EMBED_DIM}; got E={e}, heads={heads}"
         )
         raise ValueError(msg)
     if heads > 65535:
         msg = f"{heads} heads exceed the kernel's grid limit"
         raise ValueError(msg)
+
+
+def _fwd_kernel(x, ln_scale, ln_bias, w16, query, heads, eps):
+    """One launch of ``attentive_pool_fwd``: ``(out, m, den)``."""
+    global launch_count
+    b, d, l, e = x.shape
+    _check_kernel_shape(e, heads, "attentive_pool_fwd", 64)
     x = x.contiguous()
     scale32 = ln_scale.detach().to(torch.float32).contiguous()
     bias32 = ln_bias.detach().to(torch.float32).contiguous()
     query32 = query.detach().to(torch.float32).contiguous()
-    w16 = w_kv.detach().to(torch.bfloat16).contiguous()
+    w16 = w16.detach().to(torch.bfloat16).contiguous()
     out = torch.empty((b, l, e), dtype=x.dtype, device=x.device)
     m = torch.empty((b, l, heads), dtype=torch.float32, device=x.device)
     den = torch.empty_like(m)
@@ -175,3 +263,144 @@ def attentive_pool(
         raise RuntimeError(msg)
     launch_count += 1
     return out, m, den
+
+
+def bwd_splits(n_rows: int, e: int, sm_count: int) -> int:
+    """Row slices of the split-K ``d_w_kv`` product (csrc/attn_pool_bwd.cu):
+    enough [128 x 128] output tiles times slices for about 8 blocks per SM,
+    no slice under 1024 rows."""
+    tiles = (2 * e // 128) * (e // 128)
+    return max(1, min(-(-n_rows // 1024), -(-8 * sm_count // tiles)))
+
+
+def attentive_pool_bwd(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w_kv: torch.Tensor,
+    query: torch.Tensor,
+    out: torch.Tensor,
+    m: torch.Tensor,
+    den: torch.Tensor,
+    g: torch.Tensor,
+    heads: int,
+    eps: float = 1e-5,
+    need_dx: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of the pool from the saved ``(x, out, m, den)`` and the
+    gradient ``g`` of ``out``: ``(dx or None, d_ln_scale, d_ln_bias, d_w_kv,
+    d_query)``, dx in x's dtype and the rest fp32.
+
+    For CPU tensors ``attentive_pool_bwd_plain``; for CUDA tensors the kernels
+    of csrc/attn_pool_bwd.cu (``w_kv`` multiplied as bf16)."""
+    global bwd_launch_count
+    _check_params(x, ln_scale, ln_bias, w_kv, query, heads)
+    b, d, l, e = x.shape
+    if tuple(out.shape) != (b, l, e) or tuple(g.shape) != (b, l, e):
+        msg = f"out and g must be [{b}, {l}, {e}], got {tuple(out.shape)}, {tuple(g.shape)}"
+        raise ValueError(msg)
+    if tuple(m.shape) != (b, l, heads) or tuple(den.shape) != (b, l, heads):
+        msg = f"m and den must be [{b}, {l}, {heads}], got {tuple(m.shape)}, {tuple(den.shape)}"
+        raise ValueError(msg)
+    if m.dtype != torch.float32 or den.dtype != torch.float32:
+        msg = f"m and den must be float32, got {m.dtype}, {den.dtype}"
+        raise TypeError(msg)
+    if any(t.device != x.device for t in (out, m, den, g)):
+        msg = "attentive_pool_bwd: out, m, den and g must lie on x's device"
+        raise ValueError(msg)
+    if x.device.type == "cpu":
+        return attentive_pool_bwd_plain(x, ln_scale, ln_bias, w_kv, query, out, m, den, g,
+                                        heads, eps, need_dx)
+    _check_kernel_shape(e, heads, "attentive_pool_bwd", 128)
+    dev = x.device
+    x = x.contiguous()
+    out = out.to(x.dtype).contiguous()
+    g = g.to(x.dtype).contiguous()
+    m, den = m.contiguous(), den.contiguous()
+    scale32 = ln_scale.detach().to(torch.float32).contiguous()
+    bias32 = ln_bias.detach().to(torch.float32).contiguous()
+    query32 = query.detach().to(torch.float32).contiguous()
+    w16 = w_kv.detach().to(torch.bfloat16).contiguous()
+    n_rows = b * d * l
+    n_tiles = -(-n_rows // _ROW_TILE)
+    splits = bwd_splits(n_rows, e, torch.cuda.get_device_properties(dev).multi_processor_count)
+    dx = torch.empty_like(x) if need_dx else None
+    dkv = torch.empty((n_rows, 2 * e), dtype=torch.bfloat16, device=dev)
+    stats = torch.empty((2, n_rows), dtype=torch.float32, device=dev)
+    part_small = torch.empty((n_tiles, 3 * e), dtype=torch.float32, device=dev)
+    d_w = torch.empty((2 * e, e), dtype=torch.float32, device=dev)
+    dw_part = torch.empty((splits, 2 * e, e), dtype=torch.float32, device=dev) \
+        if splits > 1 else d_w
+    small = torch.empty(3 * e, dtype=torch.float32, device=dev)  # d_query | d_scale | d_bias
+    with torch.cuda.device(dev):
+        err = _bwd_kernel()(
+            x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), w16.data_ptr(),
+            query32.data_ptr(), out.data_ptr(), g.data_ptr(), m.data_ptr(), den.data_ptr(),
+            0 if dx is None else dx.data_ptr(), dkv.data_ptr(), stats[0].data_ptr(),
+            stats[1].data_ptr(), part_small.data_ptr(), dw_part.data_ptr(), d_w.data_ptr(),
+            small.data_ptr(), b, d, l, e, heads, float(eps), splits, _DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        msg = (
+            f"attentive_pool_bwd launch failed with CUDA error {err} "
+            f"for x {tuple(x.shape)} {x.dtype}"
+        )
+        raise RuntimeError(msg)
+    bwd_launch_count += 1
+    d_query, d_scale, d_bias = small.split(e)
+    return dx, d_scale, d_bias, d_w, d_query
+
+
+class _AttentivePool(torch.autograd.Function):
+    """The pool with its gradient in x and the four parameters; saves
+    ``(x, out, m, den)`` and the parameters, as the JAX ``_vjp_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, w_kv, query, heads, eps, w16):
+        if x.device.type == "cpu":
+            out, m, den = attentive_pool_plain(x, ln_scale, ln_bias, w_kv, query, heads, eps)
+        else:
+            out, m, den = _fwd_kernel(x, ln_scale, ln_bias, w16, query, heads, eps)
+        ctx.mark_non_differentiable(m, den)
+        ctx.save_for_backward(x, ln_scale, ln_bias, w_kv, query, out, m, den, w16)
+        ctx.heads, ctx.eps = heads, eps
+        return out, m, den
+
+    @staticmethod
+    def backward(ctx, g, g_m, g_den):
+        del g_m, g_den  # m and den are statistics, not differentiable outputs
+        x, ln_scale, ln_bias, w_kv, query, out, m, den, w16 = ctx.saved_tensors
+        dx, d_scale, d_bias, d_w, d_query = attentive_pool_bwd(
+            x, ln_scale, ln_bias, w_kv if w16 is None else w16, query, out, m, den, g,
+            ctx.heads, ctx.eps, need_dx=ctx.needs_input_grad[0],
+        )
+        return (dx, d_scale.to(ln_scale.dtype), d_bias.to(ln_bias.dtype),
+                d_w.to(w_kv.dtype), d_query.to(query.dtype), None, None, None)
+
+
+def attentive_pool(
+    x: torch.Tensor,
+    ln_scale: torch.Tensor,
+    ln_bias: torch.Tensor,
+    w_kv: torch.Tensor,
+    query: torch.Tensor,
+    heads: int,
+    eps: float = 1e-5,
+    w_kv_bf16: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``[B, D, L, E] -> out [B, L, E]`` plus the softmax statistics
+    ``m, den [B, L, H]`` (fp32, not differentiable); ``out`` is
+    differentiable in ``x`` and the parameters.
+
+    On the card ``w_kv`` is multiplied as bf16: a caller that keeps a bf16
+    copy of it passes it as ``w_kv_bf16`` and saves a cast on every launch
+    (the gradient still goes to ``w_kv``)."""
+    _check_params(x, ln_scale, ln_bias, w_kv, query, heads)
+    w16 = None
+    if x.device.type == "cuda":
+        w16 = w_kv.detach().to(torch.bfloat16) if w_kv_bf16 is None else w_kv_bf16
+        if w16.shape != w_kv.shape or w16.dtype != torch.bfloat16 or w16.device != x.device:
+            msg = f"w_kv_bf16 must be a bfloat16 {tuple(w_kv.shape)} tensor on {x.device}"
+            raise ValueError(msg)
+    return _AttentivePool.apply(x, ln_scale, ln_bias, w_kv, query, heads, eps, w16)

@@ -23,13 +23,17 @@ import torch
 from maestro_tpu_torch.models.mae import resolve_device
 
 
-def batch_to_device(model, batch: dict, device: torch.device) -> dict[str, torch.Tensor]:
+def batch_to_device(model, batch: dict, device: torch.device,
+                    targets: bool = False) -> dict[str, torch.Tensor]:
     """What the model reads of ``batch`` (each modality and its dates, the
-    reference date), as tensors on ``device``.  Targets and unused modalities
-    a loader may put in the batch are not copied to the device."""
+    reference date) and, with ``targets``, each head's labels, as tensors on
+    ``device``.  Unused modalities a loader may put in the batch are not
+    copied to the device."""
     keys = ["ref_date"]
     for name in model.plan.mods:
         keys += [name, f"{name}_dates"]
+    if targets:
+        keys += [hs.name for hs in model.head_specs]
     out = {}
     for key in keys:
         value = batch[key]

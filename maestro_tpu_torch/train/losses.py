@@ -1,11 +1,13 @@
-"""Reconstruction losses of MAE pretraining.
+"""Losses of the three phases.
 
 Reconstruction loss with patch-group-wise target normalization (reference
 maestro/train/model.py:195-247).  The masked mean is a sum/count formulation
 over static shapes, as in the JAX package's ``train/losses.py``; it is the
 pixel-space reference of ``ops/fused_loss.py`` and that module's fallback for
-multi-band-group modalities.  The prediction losses of the supervised phases
-arrive with their train step.
+multi-band-group modalities.  ``prediction_losses`` are the probe / finetune
+losses (reference base.py:120-150): per-pixel cross-entropy for segmentation,
+binary cross-entropy for multilabel and cross-entropy for single-label
+classification, rows whose label is ``missing_val`` masked out.
 """
 
 from __future__ import annotations
@@ -87,3 +89,54 @@ def reconstruction_loss(
         total = total + weight * mod_loss
         weights = weights + weight
     return total / weights
+
+
+def _masked_mean(per_row: torch.Tensor, valid: torch.Tensor,
+                 logits: torch.Tensor) -> torch.Tensor:
+    """Mean of ``per_row`` over the valid rows; ``0 * logits.mean()`` when no
+    row is valid, so the gradient stays defined (reference base.py:147-148).
+    No host sync: both branches are computed and selected on the device."""
+    count = valid.sum()
+    mean = (per_row * valid).sum() / count.clamp(min=1)
+    return torch.where(count > 0, mean, 0.0 * logits.mean())
+
+
+def prediction_losses(
+    head_specs,
+    batch: dict[str, torch.Tensor],
+    logits: dict[str, torch.Tensor],
+) -> tuple[torch.Tensor, dict[str, dict[str, torch.Tensor]]]:
+    """Sum of the per-target losses, and per target what the metrics read:
+    ``preds`` (segment: argmax over the class axis), or ``logits``, with
+    ``labels`` and the ``valid`` row mask.  Losses are taken in fp32."""
+    total = 0.0
+    aux: dict[str, dict[str, torch.Tensor]] = {}
+    for hs in head_specs:
+        lg = logits[hs.name].float()
+        y = batch[hs.name]
+        if hs.type_target == "segment":
+            lgc = lg[:, 0]  # [B, C, H, W]
+            y2 = y[:, 0, 0].long()  # [B, H, W]
+            y_safe = y2.clamp(0, hs.num_classes - 1)
+            lse = torch.logsumexp(lgc, dim=1)
+            picked = lgc.gather(1, y_safe[:, None])[:, 0]
+            ce = (lse - picked).reshape(-1)
+            valid = (y2 != hs.missing_val).reshape(-1)
+            loss = _masked_mean(ce, valid, lg)
+            aux[hs.name] = {"preds": lgc.argmax(dim=1).reshape(-1),
+                            "labels": y2.reshape(-1), "valid": valid}
+        elif hs.type_target == "multilabel_classif":
+            yf = y.float()
+            valid = (y != hs.missing_val).all(dim=1)
+            bce = lg.clamp(min=0) - lg * yf + torch.log1p(torch.exp(-lg.abs()))
+            loss = _masked_mean(bce.mean(dim=1), valid, lg)
+            aux[hs.name] = {"logits": lg, "labels": y, "valid": valid}
+        else:  # classif
+            y1 = y.reshape(-1).long()
+            valid = y1 != hs.missing_val
+            y_safe = y1.clamp(0, hs.num_classes - 1)
+            ce = -torch.log_softmax(lg, dim=-1).gather(1, y_safe[:, None])[:, 0]
+            loss = _masked_mean(ce, valid, lg)
+            aux[hs.name] = {"logits": lg, "labels": y1, "valid": valid}
+        total = total + loss
+    return total, aux

@@ -1,29 +1,42 @@
-"""The pretrain train step.
+"""Train and eval steps of the three phases.
 
-One call runs the whole hot path eagerly: move the batch to the device,
-resize, embed, mask, encode, decode, loss, backward, AdamW update.  The masks
-of step n are drawn from a generator seeded from (seed, n), as the JAX package
-folds the step count into its mask key (``fold_in(rng, state.step)``): a
-restarted run draws the same masks for the same steps.  The generator lives
-on the host: the masks are a few kilobytes, and drawing them there keeps the
-structural mask's redraw test from waiting on the device.  Supervised steps
-arrive with slice 3.
+One call of a train step runs the whole hot path eagerly: move the batch to
+the device, resize, embed, (mask,) encode, (decode,) loss, backward, AdamW
+update.  The masks of pretrain step n are drawn from a generator seeded from
+(seed, n), as the JAX package folds the step count into its mask key
+(``fold_in(rng, state.step)``): a restarted run draws the same masks for the
+same steps.  The generator lives on the host: the masks are a few kilobytes,
+and drawing them there keeps the structural mask's redraw test from waiting
+on the device.
+
+The supervised (probe / finetune) steps take the prediction losses and update
+the metric states on the device; finetune evaluation runs the EMA weights
+through ``torch.func.functional_call``, leaving the trained weights alone.
+No step reads a value back to the host: losses come back as device scalars.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from maestro_tpu_torch.models.mae import MaestroMAE, resolve_device
 from maestro_tpu_torch.ops.fused_loss import fused_reconstruction_loss
 from maestro_tpu_torch.serve import batch_to_device
 from maestro_tpu_torch.specs.fusion import FusionPlan
-from maestro_tpu_torch.train.losses import reconstruction_loss
+from maestro_tpu_torch.train import metrics as M
+from maestro_tpu_torch.train.losses import prediction_losses, reconstruction_loss
 from maestro_tpu_torch.train.optim import ScheduledAdamW
 from maestro_tpu_torch.train.state import TrainState
+
+
+def _check_state(state: TrainState, model, tx) -> None:
+    if state.model is not model or state.tx is not tx:
+        msg = "the train state holds another model or optimizer than this step"
+        raise ValueError(msg)
 
 
 def mask_generator(seed: int, step: int) -> torch.Generator:
@@ -68,15 +81,121 @@ def make_pretrain_step(
     loss_fn = pretrain_loss_fn(model, plan, loss_type, fused_loss)
 
     def step(state: TrainState, batch: dict, seed: int):
-        if state.model is not model or state.tx is not tx:
-            msg = "the train state holds another model or optimizer than this step"
-            raise ValueError(msg)
+        _check_state(state, model, tx)
         model.train()
         loss = loss_fn(batch_to_device(model, batch, device), mask_generator(seed, state.step))
         tx.zero_grad()
         loss.backward()
-        tx.update(state.step)
+        tx.step()
         state.step += 1
         return state, {"loss_rec": loss.detach()}
 
     return step
+
+
+def _check_phase(phase: str) -> None:
+    if phase not in ("probe", "finetune"):
+        msg = f"supervised phase must be probe|finetune, got {phase!r}"
+        raise ValueError(msg)
+
+
+def _update_metrics(head_specs, metric_states: dict, aux: dict) -> dict:
+    with torch.no_grad():
+        for hs in head_specs:
+            M.metric_update(hs.type_target, metric_states[hs.name], aux[hs.name])
+    return metric_states
+
+
+def make_supervised_step(model: MaestroMAE, phase: str, tx: ScheduledAdamW) -> Callable:
+    """``step(state, batch, metric_states) -> (state, metric_states,
+    {"loss_pred": loss})`` for the probe or finetune phase.
+
+    ``batch`` holds numpy arrays or tensors, targets included.  The probe
+    phase runs the trunk without autograd (its parameters are frozen);
+    ``tx`` trains the phase's roles.  ``state`` and the metric states are
+    updated in place and returned."""
+    _check_phase(phase)
+    device = resolve_device(model.device)
+    head_specs = model.head_specs
+
+    def step(state: TrainState, batch: dict, metric_states: dict):
+        _check_state(state, model, tx)
+        model.train()
+        batch = batch_to_device(model, batch, device, targets=True)
+        loss, aux = prediction_losses(head_specs, batch, model(batch, phase))
+        tx.zero_grad()
+        loss.backward()
+        tx.step()
+        state.step += 1
+        return state, _update_metrics(head_specs, metric_states, aux), {"loss_pred": loss.detach()}
+
+    return step
+
+
+def _eval_params(state: TrainState, use_ema: bool) -> dict[str, torch.Tensor] | None:
+    return state.ema if use_ema and state.ema is not None else None
+
+
+def make_supervised_eval_step(model: MaestroMAE, phase: str, use_ema: bool = False) -> Callable:
+    """``step(state, batch, metric_states) -> (metric_states, {"loss_pred"})``;
+    with ``use_ema`` (finetune val/test) the EMA weights, when the state has
+    them, stand in for the trained ones for this call only."""
+    _check_phase(phase)
+    device = resolve_device(model.device)
+    head_specs = model.head_specs
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: dict, metric_states: dict):
+        model.eval()
+        batch = batch_to_device(model, batch, device, targets=True)
+        params = _eval_params(state, use_ema)
+        logits = model(batch, phase) if params is None else functional_call(
+            model, params, (batch, phase))
+        loss, aux = prediction_losses(head_specs, batch, logits)
+        return _update_metrics(head_specs, metric_states, aux), {"loss_pred": loss}
+
+    return step
+
+
+def make_feature_step(model: MaestroMAE) -> Callable:
+    """``fn(batch) -> encoded``: the frozen-trunk forward
+    (``encode_for_heads``) whose output the head-eval step consumes."""
+    device = resolve_device(model.device)
+
+    @torch.no_grad()
+    def features(batch: dict) -> dict[str, torch.Tensor]:
+        model.eval()
+        return model.encode_for_heads(batch_to_device(model, batch, device))
+
+    return features
+
+
+def make_head_eval_step(model: MaestroMAE, phase: str, use_ema: bool = False) -> Callable:
+    """``step(state, encoded, labels, metric_states) -> (metric_states,
+    {"loss_pred"})``: the eval step over precomputed trunk features (heads,
+    losses, metrics); ``labels`` holds each head's targets by name."""
+    _check_phase(phase)
+    device = resolve_device(model.device)
+    head_specs = model.head_specs
+
+    @torch.no_grad()
+    def step(state: TrainState, encoded: dict, labels: dict, metric_states: dict):
+        model.eval()
+        labels = {hs.name: torch.as_tensor(labels[hs.name]).to(device) for hs in head_specs}
+        params = _eval_params(state, use_ema)
+        logits = model(encoded, phase, from_features=True) if params is None else \
+            functional_call(model, params, (encoded, phase), {"from_features": True})
+        loss, aux = prediction_losses(head_specs, labels, logits)
+        return _update_metrics(head_specs, metric_states, aux), {"loss_pred": loss}
+
+    return step
+
+
+def init_metric_states(head_specs, device="cuda") -> dict[str, Any]:
+    device = resolve_device(device)
+    return {hs.name: M.metric_init(hs.type_target, hs.num_classes, device) for hs in head_specs}
+
+
+def compute_metrics(head_specs, metric_states) -> dict[str, dict[str, float]]:
+    return {hs.name: M.metric_compute(hs.type_target, metric_states[hs.name])
+            for hs in head_specs}

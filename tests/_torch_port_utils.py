@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from maestro_tpu_torch.port.from_jax import _DICT_ATTRS
+
 
 @pytest.fixture(scope="module")
 def single_thread_torch():
@@ -44,3 +46,38 @@ def to_np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x, dtype=np.float32)
+
+
+def synthetic_tree(model, seed: int, skip: tuple[str, ...] = ()) -> dict:
+    """A flax parameter tree (numpy leaves) for every parameter of the port's
+    ``model`` whose name starts with none of ``skip``: dense kernels
+    Normal(0, 1/fan_in), scales 1 + 0.1 N, everything else 0.2 N (biases and
+    mask tokens included, so every leaf takes part).  Built from the port's
+    names, the inverse of ``load_jax_params``'s mapping, which checks it back
+    strictly both ways; tracing the JAX package's ``init`` would cost seconds."""
+    rng = np.random.default_rng(seed)
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        if name.startswith(skip):
+            continue
+        parts = name.split(".")
+        owner = model.get_submodule(".".join(parts[:-1]))
+        if parts[0] == "mask_tokens":
+            parts = [f"mask_token_{parts[1]}"]
+        elif parts[0] in _DICT_ATTRS:
+            parts = [f"{parts[0]}_{parts[1]}", *parts[2:]]
+        if parts[-1] == "weight":
+            parts[-1] = "kernel" if isinstance(owner, torch.nn.Linear) else "scale"
+        shape = tuple(p.shape[::-1]) if parts[-1] == "kernel" else tuple(p.shape)
+        x = rng.normal(size=shape)
+        if parts[-1] == "kernel":
+            x = x * shape[0] ** -0.5
+        elif parts[-1].endswith("scale"):
+            x = 1.0 + 0.1 * x
+        elif not parts[-1].startswith("mask_token"):
+            x = 0.2 * x
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = x.astype(np.float32)
+    return {"params": tree}

@@ -9,6 +9,7 @@ is held against the plain version on the GPU by chip_smoke.py.  The port takes
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -99,3 +100,140 @@ def test_cpu_tensors_launch_no_kernel():
     before = TP.launch_count
     _port(*_make(1, 2, 32, 128), 8)
     assert TP.launch_count == before
+
+
+# ---------------------------------------------------------------- backward
+GRAD_TOL = 1e-4  # of each gradient's max |value|, fp32; observed ~1e-6
+# (b, d, l, e, heads): E = 128 with 8 heads, a ragged L, a D no date block of
+# the JAX kernel divides into 128-row blocks; dh = 96
+BWD_SHAPES = [(2, 5, 40, 128, 8), (1, 3, 32, 384, 4)]
+GRAD_NAMES = ("dx", "d_ln_scale", "d_ln_bias", "d_w_kv", "d_query")
+
+
+def _jax_grads(args, cot, heads, fn):
+    """Gradients of sum(fn(...) * cot) in the port's layout (w_kv [2E, E])."""
+    jargs = [jnp.asarray(a) for a in args]
+    grads = jax.grad(lambda *a: jnp.sum(fn(*a, heads) * cot), argnums=(0, 1, 2, 3, 4))(*jargs)
+    grads = [np.asarray(g, np.float32) for g in grads]
+    grads[3] = grads[3].T
+    return grads
+
+
+def _assert_grads(got, want, names=GRAD_NAMES):
+    for name, g, w in zip(names, got, want):
+        g = to_np(g)
+        limit = GRAD_TOL * np.abs(w).max()
+        err = np.abs(g - w).max()
+        assert err <= limit, f"{name}: max abs err {err:.3e} > {limit:.3e}"
+
+
+def _port_backward(args, cot, heads, need_dx=True):
+    """The Function's backward (autograd) on the port's layout."""
+    x, scale, bias, w_kv, query = (torch.from_numpy(np.ascontiguousarray(a)) for a in args)
+    x.requires_grad_(need_dx)
+    params = [t.requires_grad_(True) for t in (scale, bias, w_kv.T.contiguous(), query)]
+    out, _, _ = TP.attentive_pool(x, *params, heads)
+    (out * torch.from_numpy(cot)).sum().backward()
+    return ([x.grad] if need_dx else []) + [p.grad for p in params]
+
+
+@pytest.mark.parametrize(("b", "d", "l", "e", "heads"), BWD_SHAPES)
+def test_backward_matches_interpret_kernel_and_reference(monkeypatch, b, d, l, e, heads):
+    """All five gradients: the plain backward and the Function's backward
+    against the JAX kernel's VJP (Pallas, interpret mode) and ``jax.grad`` of
+    ``attentive_pool_reference``."""
+    monkeypatch.setattr(JP, "INTERPRET", True)
+    args = _make(b, d, l, e, seed=40)
+    cot = rng_normal(41, b, l, e)
+    want_kernel = _jax_grads(args, cot, heads, JP.attentive_pool)
+    want_ref = _jax_grads(args, cot, heads, JP.attentive_pool_reference)
+    _assert_grads(want_kernel, want_ref)  # the two JAX gradients agree
+
+    t = torch.from_numpy
+    x, scale, bias, w_kv, query = (t(np.ascontiguousarray(a)) for a in args)
+    w_kv = w_kv.T.contiguous()
+    out, m, den = TP.attentive_pool_plain(x, scale, bias, w_kv, query, heads)
+    plain = TP.attentive_pool_bwd_plain(x, scale, bias, w_kv, query, out, m, den, t(cot), heads)
+    _assert_grads(plain, want_kernel)
+    _assert_grads(_port_backward(args, cot, heads), want_kernel)
+
+
+def test_backward_without_dx(monkeypatch):
+    """x that needs no gradient (the probe phase): the four parameter
+    gradients only, the same as with dx."""
+    monkeypatch.setattr(JP, "INTERPRET", True)
+    b, d, l, e, heads = 2, 5, 40, 128, 8
+    args = _make(b, d, l, e, seed=50)
+    cot = rng_normal(51, b, l, e)
+    want = _jax_grads(args, cot, heads, JP.attentive_pool)
+    got = _port_backward(args, cot, heads, need_dx=False)
+    assert len(got) == 4
+    _assert_grads(got, want[1:], GRAD_NAMES[1:])
+    t = torch.from_numpy
+    x, scale, bias, w_kv, query = (t(np.ascontiguousarray(a)) for a in args)
+    out, m, den = TP.attentive_pool_plain(x, scale, bias, w_kv.T, query, heads)
+    dx, *rest = TP.attentive_pool_bwd(x, scale, bias, w_kv.T, query, out, m, den, t(cot),
+                                      heads, need_dx=False)
+    assert dx is None
+    _assert_grads(rest, want[1:], GRAD_NAMES[1:])
+
+
+def test_attentive_reduce_fused_gradients_match_jax(monkeypatch):
+    """``AttentiveReduce`` on the fused gate (E % 128 == 0, L >= 32, D >= 2):
+    output, input gradient and every parameter gradient against the JAX
+    module with its Pallas pool in interpret mode."""
+    from maestro_tpu.models.vit import AttentiveReduce as JReduce
+    from maestro_tpu_torch.models.vit import AttentiveReduce
+    from maestro_tpu_torch.port.from_jax import _target_name, load_jax_params
+
+    monkeypatch.setattr(JP, "INTERPRET", True)
+    b, d, l, e, heads = 2, 6, 40, 256, 8
+    x = rng_normal(60, b, d, l, e)
+    jmod = JReduce(dim=e, heads=heads, dtype=jnp.float32)
+    assert jmod._use_fused_pool(jnp.asarray(x))
+    params = jax.tree.map(np.asarray, jmod.init(jax.random.PRNGKey(1), jnp.asarray(x)))
+    params = jax.tree.map(lambda a: a + 0.1 * rng_normal(61, *a.shape), params)  # biases too
+
+    def loss(p, xx):
+        return jnp.sum(jnp.square(jmod.apply(p, xx)))
+
+    want_out = np.asarray(jmod.apply(params, jnp.asarray(x)))
+    want_gp, want_gx = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(x))
+
+    mod = AttentiveReduce(e, heads, torch.float32, torch.Generator(), "cpu")
+    load_jax_params(mod, params)
+    assert mod._use_fused_pool(torch.zeros(b, d, l, e))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = mod(xt)
+    out.square().sum().backward()
+    np.testing.assert_allclose(to_np(out), want_out, **FP32_TOL)
+    _assert_grads([xt.grad], [np.asarray(want_gx)], ("dx",))
+    grads = dict(mod.named_parameters())
+    leaves = jax.tree_util.tree_flatten_with_path(want_gp["params"])[0]
+    assert len(leaves) == len(grads) == 6
+    for path, g in leaves:
+        name, transpose = _target_name(tuple(str(k.key) for k in path))
+        want = np.asarray(g, np.float32)
+        _assert_grads([grads[name].grad], [want.T if transpose else want], (name,))
+
+
+def test_bwd_bad_shapes_raise():
+    b, d, l, e, heads = 1, 2, 32, 128, 8
+    x, scale, bias, w_kv, query = (torch.from_numpy(a) for a in _make(b, d, l, e))
+    out, m, den = TP.attentive_pool_plain(x, scale, bias, w_kv.T, query, heads)
+    with pytest.raises(ValueError, match="out and g"):
+        TP.attentive_pool_bwd(x, scale, bias, w_kv.T, query, out[:, :-1], m, den, out, heads)
+    with pytest.raises(ValueError, match="m and den"):
+        TP.attentive_pool_bwd(x, scale, bias, w_kv.T, query, out, m[..., :4], den, out, heads)
+    with pytest.raises(TypeError, match="float32"):
+        TP.attentive_pool_bwd(x, scale, bias, w_kv.T, query, out, m.double(), den, out, heads)
+
+
+def test_cpu_backward_launches_no_kernel():
+    before = (TP.launch_count, TP.bwd_launch_count)
+    args = _make(1, 2, 32, 128, seed=70)
+    _port_backward(args, rng_normal(71, 1, 32, 128), 8)
+    assert (TP.launch_count, TP.bwd_launch_count) == before
+    # the split-K slice count of the d_w_kv product at the finetune shape
+    assert TP.bwd_splits(32 * 26 * 128, 768, 132) == 15
+    assert TP.bwd_splits(100, 128, 132) == 1

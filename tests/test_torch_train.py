@@ -47,7 +47,7 @@ from maestro_tpu_torch.models.mae import MAE_ARCHS, build_model
 from maestro_tpu_torch.ops import attention as TA
 from maestro_tpu_torch.ops import fused_loss as TFL
 from maestro_tpu_torch.ops import masking as TMK
-from maestro_tpu_torch.port.from_jax import _DICT_ATTRS, _target_name, load_jax_params
+from maestro_tpu_torch.port.from_jax import _target_name, load_jax_params
 from maestro_tpu_torch.serve import batch_to_device
 from maestro_tpu_torch.specs.fusion import build_fusion_plan
 from maestro_tpu_torch.train import optim as TO
@@ -55,7 +55,7 @@ from maestro_tpu_torch.train.state import TrainState
 from maestro_tpu_torch.train.steps import make_pretrain_step, mask_generator, pretrain_loss_fn
 from maestro_tpu_torch.utils import flops as TF
 
-from _torch_port_utils import single_thread_torch, to_np  # noqa: F401
+from _torch_port_utils import single_thread_torch, synthetic_tree, to_np  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("single_thread_torch")
 
@@ -71,41 +71,6 @@ DATASETS = {"treesat": "treesatai_ts", "pastis": "pastis_hd"}
 
 def _micro_cfg(cls):
     return cls(model_size="micro", fusion_mode="group", inter_depth=1)
-
-
-def _synthetic_tree(model, seed: int) -> dict:
-    """A flax parameter tree (numpy leaves) for every parameter of the port's
-    ``model`` but the heads, which take no part in pretraining: dense kernels
-    Normal(0, 1/fan_in), scales 1 + 0.1 N, everything else 0.2 N (biases and
-    mask tokens included, so every leaf takes part).  Built from the port's
-    names, the inverse of ``load_jax_params``'s mapping, which checks it back
-    strictly both ways; tracing the JAX package's ``init`` would cost seconds."""
-    rng = np.random.default_rng(seed)
-    tree: dict = {}
-    for name, p in model.named_parameters():
-        if name.startswith("heads."):
-            continue
-        parts = name.split(".")
-        owner = model.get_submodule(".".join(parts[:-1]))
-        if parts[0] == "mask_tokens":
-            parts = [f"mask_token_{parts[1]}"]
-        elif parts[0] in _DICT_ATTRS:
-            parts = [f"{parts[0]}_{parts[1]}", *parts[2:]]
-        if parts[-1] == "weight":
-            parts[-1] = "kernel" if isinstance(owner, torch.nn.Linear) else "scale"
-        shape = tuple(p.shape[::-1]) if parts[-1] == "kernel" else tuple(p.shape)
-        x = rng.normal(size=shape)
-        if parts[-1] == "kernel":
-            x = x * shape[0] ** -0.5
-        elif parts[-1].endswith("scale"):
-            x = 1.0 + 0.1 * x
-        elif not parts[-1].startswith("mask_token"):
-            x = 0.2 * x
-        node = tree
-        for key in parts[:-1]:
-            node = node.setdefault(key, {})
-        node[parts[-1]] = x.astype(np.float32)
-    return {"params": tree}
 
 
 class MaskRecorder:
@@ -172,7 +137,7 @@ def _pair(name: str, dtype: str = "float32"):
         DatasetsConfig(name_dataset=name), MaskConfig(), _micro_cfg(ModelConfig),
         dtype=tdt, device="cpu",
     )
-    tree = _synthetic_tree(model, seed=1)
+    tree = synthetic_tree(model, seed=1, skip=("heads.",))  # the heads take no part
     load_jax_params(model, tree, missing_ok=("heads.",))
     return jmodel, jplan, tree, jbatch, model, plan, batch
 
