@@ -3,10 +3,14 @@
     python3 chip_smoke.py            # what the checks need
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of requests and steps
 
-Builds the hand-written CUDA kernels from ``maestro_tpu_torch/csrc``, holds
-each against its plain PyTorch version on the card, then drives the port's two
-main paths with seeded random weights and inputs (MAE medium, FLAIR-HUB plan,
-group fusion, 3 trunk blocks, bf16 compute, fp32 parameters):
+Builds the hand-written CUDA kernels from ``maestro_tpu_torch/csrc`` (and
+reports the attention kernels' registers, shared memory and spills from the
+``ptxas`` log), holds each against its plain PyTorch version on the card (the
+attention kernels also at one row past a 128-row tile for every head dim, at
+the full-length trunk at batch 1, and twice on the same inputs: dk and dv
+bit-identical, dq within 1 bf16 ulp of max(|dq|, rms(dq))), then drives the
+port's main paths with seeded random weights and inputs (MAE medium,
+FLAIR-HUB plan, group fusion, 3 trunk blocks, bf16 compute, fp32 parameters):
 
 * serving — ``serve.make_predict_fn(model, "finetune")`` for requests of batch
   1, 4 and 8: launch counts, shapes, finiteness and agreement with the same
@@ -89,7 +93,9 @@ STEP_UPDATE_RTOL = 0.05
 # 0.999999 for the first two
 GRAD_COS_MIN = 0.99
 
-ATTN_CHECK_LENGTHS = (50, 200, 256, 400, 1024, 1880)
+# 129: one row past a 128-row tile; every head dim is also checked at the ragged 50,
+# 129, 200, 400 and 1880
+ATTN_CHECK_LENGTHS = (50, 129, 200, 256, 400, 1024, 1880)
 ATTN_CHECK_HEADS = ((6, 128), (12, 64), (3, 64), (16, 32), (8, 96))
 ATTN_CHECK_BATCH = {(6, 128): 8}  # the serving path's heads at its largest batch; else 2
 # the pretrain path's attention shapes at batch 8 (kept tokens 50..470 in the
@@ -100,7 +106,17 @@ BWD_CHECK_SHAPES = (
     + [(8, l, 4, 128) for l in (200, 256, 400, 1024)]
     + [(2, 200, 12, 64), (2, 130, 16, 32), (2, 100, 8, 96), (2, 1600, 4, 128)]
     + [(2, 1880, 6, 128)]  # the finetune step's trunk, full length
+    # one row past a tile at every head dim, and the full-length trunk at batch 1
+    + [(2, 129, h, d) for h, d in ((6, 128), (12, 64), (16, 32), (8, 96))]
+    + [(1, 1880, 6, 128)]
 )
+# two backward calls on the same inputs: dk, dv bit-identical, dq (summed in an
+# order that varies) within 1 bf16 ulp, taken at max(|dq|, rms(dq)) as the other
+# checks take their tolerance at |want| + rms (an entry near 0 is a sum that
+# cancels, and moves by more of its own ulps)
+REPEAT_CHECK_SHAPES = ((8, 470, 6, 128), (2, 1880, 6, 128), (2, 129, 16, 32))
+# the attention kernels of csrc/flash_attention*.cu, for the ptxas report
+ATTN_KERNEL_NAMES = ("attn_fwd_wgmma", "attn_bwd_wgmma", "attn_bwd_dq_convert", "attn_bwd_delta")
 # head dims 96, 96, 16, 48, 128: every one attn_pool.cu is built for
 POOL_CHECK_SHAPES = ((8, 26, 64, 768), (8, 26, 128, 768), (2, 2, 40, 128),
                      (2, 5, 64, 384), (2, 3, 40, 1024))
@@ -170,6 +186,29 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
                f"max abs err {max_abs:.3e}, rms(want) {rms.item():.3e}")
         raise AssertionError(msg)
     return max_abs, over
+
+
+def ptxas_kernels(log: str, names) -> list[dict]:
+    """Registers, static shared memory, stack and spills that ``ptxas -v``
+    reports for each compiled kernel whose (mangled) name holds one of
+    ``names``."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            fn = ln.split("Compiling entry function '")[1].split("'")[0]
+            cur = next(({"kernel": fn, "name": n} for n in names if n in fn), None)
+            if cur is not None and "ILi" in fn:  # the head dim a template is built for
+                cur["head_dim"] = int(fn.split("ILi")[1].split("E")[0])
+            if cur is not None:
+                rows.append(cur)
+        elif cur is not None and "bytes stack frame" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            cur.update(stack_bytes=nums[0], spill_store_bytes=nums[1], spill_load_bytes=nums[2])
+        elif cur is not None and "Used " in ln and " registers" in ln:
+            cur["registers"] = int(ln.split("Used ")[1].split(" registers")[0])
+            cur["static_smem_bytes"] = (int(ln.split(" bytes smem")[0].split()[-1])
+                                        if " bytes smem" in ln else 0)
+    return rows
 
 
 def ptxas_spills(log: str) -> list[str]:
@@ -346,7 +385,19 @@ def attention_fwd_checks(attention, gen) -> float:
     q, k, v = (t.contiguous() for t in qkv_views(2, 400, 6, 128, torch.bfloat16, gen))
     check_close("attention contiguous", attention.mha_blhd(q, k, v, 128**-0.5),
                 attention.mha_blhd_plain(q, k, v, 128**-0.5), ATTN_TOL[torch.bfloat16])
-    emit({"check": "flash_attention_fwd", "cases": cases + 1, "ok": True})
+    # the full-length trunk at batch 1: 15 query tiles, the last one 88 rows short
+    q, k, v = qkv_views(1, FLAIR_TOKENS, 6, 128, torch.bfloat16, gen)
+    out, lse = attention._fwd(q, k, v, 128**-0.5, with_lse=True)
+    max_abs, over = check_close("attention [1, 1880, 6, 128]", out,
+                                attention.mha_blhd_plain(q, k, v, 128**-0.5),
+                                ATTN_TOL[torch.bfloat16])
+    lse_err = (lse - attention.logsumexp_plain(q, k, 128**-0.5)).abs().max().item()
+    if not lse_err <= LSE_ABS_TOL:
+        raise AssertionError(f"attention [1, 1880, 6, 128]: logsumexp off by {lse_err}")
+    emit({"check": "flash_attention_fwd", "dtype": str(torch.bfloat16),
+          "shape": [1, FLAIR_TOKENS, 6, 128], "max_abs_err": max_abs,
+          "max_err_over_tolerance": over, "lse_max_abs_err": lse_err})
+    emit({"check": "flash_attention_fwd", "cases": cases + 2, "ok": True})
     return attn_err
 
 
@@ -388,6 +439,38 @@ def attention_bwd_checks(attention, gen) -> float:
         check_close(f"attention bwd {name} separate q, k, v", g, w, ATTN_BWD_TOL[torch.bfloat16])
     emit({"check": "flash_attention_bwd", "cases": 2 * len(BWD_CHECK_SHAPES) + 1, "ok": True})
     return bwd_err
+
+
+def attention_repeat_checks(attention, gen) -> None:
+    """Two backward calls on the same inputs: dk and dv bit-identical (each
+    written once by one thread), dq within 1 bf16 ulp (its fp32 sums arrive
+    from many blocks in an order that varies)."""
+    for b, l, h, d in REPEAT_CHECK_SHAPES:
+        qkv = qkv_fused(b, l, h, d, torch.bfloat16, gen)
+        q, k, v = qkv.unbind(dim=2)
+        out, lse = attention._fwd(q, k, v, d**-0.5, with_lse=True)
+        dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        first = attention._bwd(q, k, v, out, lse, dout, d**-0.5)
+        second = attention._bwd(q, k, v, out, lse, dout, d**-0.5)
+        torch.cuda.synchronize()
+        dkdv_equal = torch.equal(first[:, :, 1:], second[:, :, 1:])
+        a, c = first[:, :, 0].float(), second[:, :, 0].float()
+        mag = torch.maximum(a.abs(), c.abs())
+
+        def ulp_diff(scale):  # |a - c| in bf16 ulps of `scale` (frexp: m in [0.5, 1))
+            return ((a - c).abs() / torch.ldexp(torch.ones_like(a), torch.frexp(scale)[1] - 8)
+                    ).max().item()
+
+        ulps = ulp_diff(torch.clamp(mag, min=a.square().mean().sqrt().item()))
+        emit({"check": "flash_attention_bwd_repeat", "shape": [b, l, h, d],
+              "dk_dv_bit_identical": dkdv_equal, "dq_max_diff_bf16_ulp_at_max_abs_rms": ulps,
+              "dq_max_diff_own_bf16_ulp": ulp_diff(mag),
+              "dq_elements_differ": int((first[:, :, 0] != second[:, :, 0]).sum()),
+              "dq_elements": a.numel()})
+        if not dkdv_equal or not ulps <= 1.0:
+            raise AssertionError(f"attention bwd repeat {[b, l, h, d]}: dk/dv equal "
+                                 f"{dkdv_equal}, dq {ulps} ulp apart")
+        del qkv, q, k, v, out, lse, dout, first, second
 
 
 def loss_checks(fused_loss, plan, gen) -> tuple[float, float]:
@@ -923,6 +1006,11 @@ def main() -> None:
         "directory": cuda_build.build_info["directory"],
         "sources": sorted(p.name for p in cuda_build.CSRC.glob("*.cu")),
         "ptxas_spill_lines": ptxas_spills(log),
+        "attention_kernels": ptxas_kernels(log, ATTN_KERNEL_NAMES),
+        "attention_dynamic_smem_bytes": {
+            f"D={d}": {"fwd": attention.smem_bytes(d, backward=False),
+                       "bwd": attention.smem_bytes(d, backward=True)}
+            for d in attention.SUPPORTED_HEAD_DIMS},
         "max_registers": max((int(ln.split("Used ")[1].split(" registers")[0])
                               for ln in log.splitlines() if "Used " in ln and " registers" in ln),
                              default=None),
@@ -934,6 +1022,7 @@ def main() -> None:
     # ---- 3. every kernel vs its plain version
     attn_err = attention_fwd_checks(attention, gen)
     bwd_err = attention_bwd_checks(attention, gen)
+    attention_repeat_checks(attention, gen)
     pool_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for shape in POOL_CHECK_SHAPES:
@@ -1147,6 +1236,10 @@ def main() -> None:
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/flash_attention.cu",
+         "design": "attn_fwd_wgmma: 128 query rows a block, two warpgroups; 128-key K/V "
+                   "tiles by TMA through a 2-stage mbarrier ring (refilled by the second "
+                   "warpgroup done with a tile); S = QK^T and O += PV as wgmma, online softmax "
+                   "in registers (ex2)",
          "replaces": "maestro_tpu/ops/attention.py:270",
          "also_replaces": ["maestro_tpu/ops/attention.py:488", "maestro_tpu/ops/attention.py:124",
                            "maestro_tpu/ops/attention.py:82"],
@@ -1163,6 +1256,11 @@ def main() -> None:
          "per_shape": attn_rows},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/flash_attention_bwd.cu",
+         "design": "attn_bwd_delta (Delta, lse * log2 e in padded rows; zeroes the fp32 dQ "
+                   "scratch), attn_bwd_wgmma: 128 keys a block, two warpgroups, K/V loaded "
+                   "once by TMA, 64-query Q/dO tiles through a 2-stage mbarrier ring, five "
+                   "wgmma products per tile (S formed once), dQ partials added by bulk "
+                   "reduce-add; attn_bwd_dq_convert",
          "replaces": "maestro_tpu/ops/attention.py:289",
          "also_replaces": ["maestro_tpu/ops/attention.py:507", "maestro_tpu/ops/attention.py:141",
                            "maestro_tpu/ops/attention.py:82"],
@@ -1176,7 +1274,8 @@ def main() -> None:
          "bound_ms": bwd_totals["bound_ms"], "bound_by": max(bwd_kinds, key=bwd_kinds.get),
          "library_ms": bwd_totals["library_ms"],
          "times_are": f"sum over the {ATTN_PER_STEP} calls of one batch-{train_batch} train "
-                      "step, bf16; a call is three launches (Delta, dK/dV, dQ); library = "
+                      "step, bf16; a call is three launches (Delta and scratch zeroing, the wgmma "
+                      "kernel, the dq convert); library = "
                       "the backward of scaled_dot_product_attention",
          "per_shape": bwd_rows, "finetune_full_length_shapes": ft_bwd_rows},
         loss_entry("fwd", "masked_patchnorm_sums_fwd", 53, tl["loss_fwd"], loss_sum_err),

@@ -9,20 +9,35 @@
 // the short-sequence einsum): fp32 scores, fp32 softmax, P rounded to V's
 // dtype before P.V, fp32 accumulation, output in the input dtype.
 //
-// Two kernels, one tiling idea (one block per (batch, head, q-tile), a loop
-// over key tiles with an online softmax, ragged tiles masked in the kernel):
-//   * attn_mma_bf16: bf16 inputs, both products on the tensor cores through
-//     mma.sync.m16n8k16 with fp32 accumulators; scores, running max/sum, the
-//     P tile and the output tile stay in registers.  64 query rows per block
-//     (4 warps x 16 rows), 64 keys per tile; K/V tiles arrive by cp.async into
-//     a two-stage shared-memory buffer (the next tile loads while this one is
-//     multiplied) and reach the tensor cores through ldmatrix.
-//   * attn_fma: fp32 inputs, products as shared-memory FMA loops in full
-//     fp32.  16 query rows per block, 32 keys per tile.
+// What bounds it on an H100: operations (4*B*H*L^2*D against 4*B*L*H*D
+// elements moved: L/2 operations a byte, above the card's ~295 from L ~600).
+// Two kernels:
+//   * attn_fwd_wgmma (bf16): one block per (128 query rows, head, sample),
+//     two warpgroups of 64 rows each.  Thread 0 loads the block's Q tile once;
+//     128-key K and V tiles stream through a two-stage ring by TMA
+//     (cp.async.bulk.tensor on 4-D maps of the strided views; each load
+//     completes on its stage's mbarrier).  The second warpgroup to finish a
+//     tile refills its stage (a shared-memory count decides), so neither
+//     waits for the other and one's softmax overlaps the other's products.
+//     S = Q.K^T is a wgmma m64n128k16 with both operands in swizzled shared
+//     memory; the online softmax runs in fp32 registers in the log2 domain
+//     (scale * log2 e folded into the FFMA before each ex2; keys past L,
+//     zero-filled by TMA, masked in the last tile); P is rounded to bf16 in
+//     registers and O += P.V is a wgmma with A from registers and V's tile
+//     (MN-major) from shared memory.  Rows past L are not stored; O and the
+//     logsumexp go out through their strides.  Shared memory at D = 128:
+//     Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB.  No producer warp: a third
+//     warpgroup would hold every thread to 168 registers (setmaxnreg did not
+//     lift ptxas's budget), which the backward cannot live with; two
+//     warpgroups leave 255.
+//   * attn_fma (fp32): products as shared-memory FMA loops in full fp32, 16
+//     query rows per block, 32 keys per tile.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 
-#include "mma_helpers.cuh"
+#include <math_constants.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -33,190 +48,170 @@ struct Strides {
 };
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel
+// bf16 wgmma kernel
 // ---------------------------------------------------------------------------
-constexpr int kBM = 64;       // query rows per block
-constexpr int kBN = 64;       // keys per tile
-constexpr int kWarps = 4;     // 16 query rows per warp
-constexpr int kPad = 8;       // bf16 elements of row padding: rows 16 bytes apart mod 128
-constexpr int kStages = 2;    // K/V tiles in flight (cp.async double buffer)
-
-using namespace mma;
+constexpr int kBM = 128;       // query rows per block: 64 per warpgroup
+constexpr int kBN = 128;       // keys per K/V tile
+constexpr int kStages = 2;     // K/V tiles in flight
+constexpr int kThreads = 256;  // two warpgroups, up to 255 registers a thread
 
 template <int D>
-constexpr size_t attn_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * kStages * 2 * kBN * (D + kPad);
-}
+struct FwdSmem {
+  static constexpr uint32_t TILE = kBN * D * 2;  // bytes of a 128-row tile (Q, K or V)
+  static constexpr uint32_t Q = 0;
+  static constexpr uint32_t K = TILE;                     // K of stage s at K + s * 2 * TILE
+  static constexpr uint32_t V = 2 * TILE;                 // V of stage s at V + s * 2 * TILE
+  static constexpr uint32_t BARS = (1 + 2 * kStages) * TILE;  // q_full, full[kStages]
+  static constexpr uint32_t DONE = BARS + 8 * (1 + kStages);    // int count[kStages]
+  static constexpr uint32_t BYTES = DONE + 4 * kStages + 1024;  // + alignment slack
+};
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_mma_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-              float* __restrict__ lse, int L, Strides sq, Strides sk, Strides sv, Strides so,
-              float sm_scale) {
-  constexpr int LD = D + kPad;          // shared row stride in elements
-  constexpr int TILE = kBN * LD;        // elements of one K (or V) tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][kBN][LD]
-  __nv_bfloat16* Vs = Ks + kStages * TILE;                          // [kStages][kBN][LD]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // fragment column pair
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int row0 = blockIdx.x * kBM + warp * 16;  // first query row of this warp
-
-  const __nv_bfloat16* qb = q + batch * sq.b + head * sq.h;
-  const __nv_bfloat16* kb = k + batch * sk.b + head * sk.h;
-  const __nv_bfloat16* vb = v + batch * sv.b + head * sv.h;
-
-  // K and V tile -> stage: 16-byte cp.async per vector, rows beyond L zero-filled
-  auto load_tile = [&](int tile, int stage) {
-    constexpr int VEC_PER_ROW = D / 8;
-    const int key0 = tile * kBN;
-    __nv_bfloat16* ks = Ks + stage * TILE;
-    __nv_bfloat16* vs = Vs + stage * TILE;
-    for (int idx = tid; idx < kBN * VEC_PER_ROW; idx += kWarps * 32) {
-      const int r = idx / VEC_PER_ROW;
-      const int c = (idx % VEC_PER_ROW) * 8;
-      if (key0 + r < L) {
-        cp_async_16(&ks[r * LD + c], kb + (long long)(key0 + r) * sk.l + c);
-        cp_async_16(&vs[r * LD + c], vb + (long long)(key0 + r) * sv.l + c);
-      } else {
-        *reinterpret_cast<uint4*>(&ks[r * LD + c]) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(&vs[r * LD + c]) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    cp_async_commit();
+__global__ void __launch_bounds__(kThreads, 1)
+attn_fwd_wgmma(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ o,
+               float* __restrict__ lse, int L, Strides so, float scale_log2) {
+  using namespace hopper;
+  using T = Tile<D>;
+  using S = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + S::BARS;  // then full[kStages]
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  // warpgroups done with stage s, ever: the second of a tile sees an odd count
+  int* done = reinterpret_cast<int*>(smem_raw + (base - smem_u32(smem_raw)) + S::DONE);
+  auto stage_done = [&](int s) {
+    __threadfence_block();
+    return (atomicAdd(done + s, 1) & 1) == 1;
   };
 
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int q0 = blockIdx.x * kBM;
   const int n_tiles = (L + kBN - 1) / kBN;
-  load_tile(0, 0);
 
-  // Q fragments (A operand) straight from device memory, once per block:
-  // a[0]=(row g, k 2t..), a[1]=(row g+8, k 2t..), a[2]/a[3] the same at k+8.
-  uint32_t qf[D / 16][4];
-  {
-    const int r_lo = row0 + g, r_hi = row0 + g + 8;
-    const uint32_t* p_lo = reinterpret_cast<const uint32_t*>(qb + (long long)r_lo * sq.l);
-    const uint32_t* p_hi = reinterpret_cast<const uint32_t*>(qb + (long long)r_hi * sq.l);
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const int c = ks * 8 + t;  // 32-bit word index: element ks*16 + 2t
-      qf[ks][0] = r_lo < L ? p_lo[c] : 0u;
-      qf[ks][1] = r_hi < L ? p_hi[c] : 0u;
-      qf[ks][2] = r_lo < L ? p_lo[c + 4] : 0u;
-      qf[ks][3] = r_hi < L ? p_hi[c + 4] : 0u;
+  // thread 0 issues every TMA load: K/V tile j into stage j % kStages
+  auto load_kv = [&](int j) {
+    const int s = j % kStages;
+    mbar_arrive_expect_tx(full(s), 2 * S::TILE);
+    const uint32_t ks = base + S::K + s * 2 * S::TILE, vs = base + S::V + s * 2 * S::TILE;
+    for (int c = 0; c < D / T::CH; ++c) {
+      tma_load_4d(ks + c * kBN * T::SW, &map_k, full(s), c * T::CH, head, j * kBN, batch);
+      tma_load_4d(vs + c * kBN * T::SW, &map_v, full(s), c * T::CH, head, j * kBN, batch);
     }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      done[s] = 0;
+    }
+    fence_barrier_init();
+    mbar_arrive_expect_tx(q_full, S::TILE);
+    for (int c = 0; c < D / T::CH; ++c) {
+      tma_load_4d(base + S::Q + c * kBM * T::SW, &map_q, q_full, c * T::CH, head, q0, batch);
+    }
+    for (int j = 0; j < kStages && j < n_tiles; ++j) load_kv(j);
   }
+  __syncthreads();
 
-  float oacc[D / 8][4];
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const uint32_t q_tile = base + S::Q + wg * 64 * T::SW;  // this warpgroup's rows
+
+  float oacc[D / 2];
+  zero_regs(oacc);
+  float m_lo = kMasked, m_hi = kMasked;  // running max (log2 domain) of rows g, g + 8
+  float l_lo = 0.f, l_hi = 0.f;          // this thread's share of the running sums
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    mbar_wait(full(s), (j / kStages) & 1);
+    const uint32_t ks = base + S::K + s * 2 * S::TILE, vs = base + S::V + s * 2 * S::TILE;
+
+    // S = Q K^T: 64 rows x 128 keys
+    float sacc[kBN / 2];
+    zero_regs(sacc);
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    oacc[i][0] = oacc[i][1] = oacc[i][2] = oacc[i][3] = 0.f;
-  }
-  float m_lo = kMasked, m_hi = kMasked;  // running max of rows g and g+8
-  float l_lo = 0.f, l_hi = 0.f;          // this thread's share of the running sum
-
-  // ldmatrix lane roles: matrix i = lane / 8, row within it = lane % 8
-  const int lm_mat = lane >> 3, lm_row = lane & 7;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int key0 = tile * kBN;
-    const int stage = tile & 1;
-    // the other stage was last read in iteration tile-1, which ended in a barrier
-    if (tile + 1 < n_tiles) {
-      load_tile(tile + 1, stage ^ 1);
-      cp_async_wait<1>();  // all but the newest group: this tile has landed
-    } else {
-      cp_async_wait<0>();
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<kBN>::ss<0, 0>(sacc, desc_k<D>(q_tile, kBM, kk), desc_k<D>(ks, kBN, kk), kk > 0);
     }
-    __syncthreads();
-    const __nv_bfloat16* ks_tile = Ks + stage * TILE;
-    const __nv_bfloat16* vs_tile = Vs + stage * TILE;
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sacc);
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[kBN / 8][4];
+    // keys past L (the last tile only) masked; row max of the raw scores
+    const int key0 = j * kBN;
+    if (key0 + kBN > L) {
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-      for (int np = 0; np < kBN / 16; ++np) {
-        // matrices: (keys np*16+0..7, k lo), (same keys, k hi),
-        //           (keys np*16+8..15, k lo), (same keys, k hi)
-        uint32_t b[4];
-        ldmatrix_x4(b, &ks_tile[(np * 16 + (lm_mat >> 1) * 8 + lm_row) * LD + ks * 16 +
-                                (lm_mat & 1) * 8]);
-        mma_bf16_16816(s[2 * np], qf[ks], b[0], b[1]);
-        mma_bf16_16816(s[2 * np + 1], qf[ks], b[2], b[3]);
+      for (int c = 0; c < kBN / 8; ++c) {
+        const int col = key0 + 8 * c + 2 * t;
+        if (col >= L) sacc[4 * c + 0] = sacc[4 * c + 2] = kMasked;
+        if (col + 1 >= L) sacc[4 * c + 1] = sacc[4 * c + 3] = kMasked;
       }
     }
-
-    // scale, mask ragged keys, tile row max
     float mx_lo = kMasked, mx_hi = kMasked;
 #pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      const int col = key0 + nt * 8 + 2 * t;
-      s[nt][0] = col < L ? s[nt][0] * sm_scale : kMasked;
-      s[nt][1] = col + 1 < L ? s[nt][1] * sm_scale : kMasked;
-      s[nt][2] = col < L ? s[nt][2] * sm_scale : kMasked;
-      s[nt][3] = col + 1 < L ? s[nt][3] * sm_scale : kMasked;
-      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    for (int c = 0; c < kBN / 8; ++c) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sacc[4 * c + 0], sacc[4 * c + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sacc[4 * c + 2], sacc[4 * c + 3]));
     }
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
     mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
     mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float alpha_lo = __expf(m_lo - mn_lo), alpha_hi = __expf(m_hi - mn_hi);
+    // running max in the log2 domain (scale * log2 e > 0 keeps the order)
+    const float mn_lo = fmaxf(m_lo, mx_lo * scale_log2), mn_hi = fmaxf(m_hi, mx_hi * scale_log2);
+    const float alpha_lo = exp2_approx(m_lo - mn_lo), alpha_hi = exp2_approx(m_hi - mn_hi);
     m_lo = mn_lo;
     m_hi = mn_hi;
     l_lo *= alpha_lo;
     l_hi *= alpha_hi;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      oacc[i][0] *= alpha_lo;
-      oacc[i][1] *= alpha_lo;
-      oacc[i][2] *= alpha_hi;
-      oacc[i][3] *= alpha_hi;
+      oacc[4 * i + 0] *= alpha_lo;
+      oacc[4 * i + 1] *= alpha_lo;
+      oacc[4 * i + 2] *= alpha_hi;
+      oacc[4 * i + 3] *= alpha_hi;
     }
 
-    // P = exp(S - m) in fp32, summed in fp32, rounded to bf16 as the A operand
+    // P = exp2(S * scale * log2 e - m) in fp32 (one FFMA and one ex2 each),
+    // summed in fp32, rounded to bf16 as the A operand
     uint32_t pf[kBN / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      const float p0 = __expf(s[nt][0] - mn_lo), p1 = __expf(s[nt][1] - mn_lo);
-      const float p2 = __expf(s[nt][2] - mn_hi), p3 = __expf(s[nt][3] - mn_hi);
-      l_lo += p0 + p1;
-      l_hi += p2 + p3;
-      // the C layout of key tiles 2j and 2j+1 is the A layout of k-step j
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-
-    // O += P V
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        // V is [key][d]: transposed matrices (keys kk*16+0..7, d dp*16+0..7),
-        // (keys +8, same d), (keys +0, d +8), (keys +8, d +8)
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, &vs_tile[(kk * 16 + (lm_mat & 1) * 8 + lm_row) * LD + dp * 16 +
-                                      (lm_mat >> 1) * 8]);
-        mma_bf16_16816(oacc[2 * dp], pf[kk], b[0], b[1]);
-        mma_bf16_16816(oacc[2 * dp + 1], pf[kk], b[2], b[3]);
+      for (int r = 0; r < 4; ++r) {
+        const float mn = (r & 1) ? mn_hi : mn_lo;
+        const float p0 = exp2_approx(fmaf(sacc[8 * kk + 2 * r], scale_log2, -mn));
+        const float p1 = exp2_approx(fmaf(sacc[8 * kk + 2 * r + 1], scale_log2, -mn));
+        if (r & 1) {
+          l_hi += p0 + p1;
+        } else {
+          l_lo += p0 + p1;
+        }
+        pf[kk][r] = pack_bf16(p0, p1);
       }
     }
-    __syncthreads();  // this stage is free for the load issued next iteration
+
+    // O += P V
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      Wgmma<D>::template rs<1>(oacc, pf[kk], desc_mn<D>(vs, kBN, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(oacc);
+    fence_regs(pf);
+    // the second warpgroup done with tile j refills its stage: neither waits
+    // for the other, so the two drift apart and their softmax phases overlap
+    // the other's products
+    named_bar_sync(1 + wg, 128);
+    if (tid == 0 && stage_done(s) && j + kStages < n_tiles) load_kv(j + kStages);
+    __syncwarp();  // warp 0 reconverges before the next warp-aligned wgmma
   }
 
   // finish the row sums across the four threads that share a row
@@ -225,25 +220,24 @@ attn_mma_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
   l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-
+  const int r_lo = q0 + wg * 64 + warp * 16 + g, r_hi = r_lo + 8;
   __nv_bfloat16* ob = o + batch * so.b + head * so.h;
-  const int r_lo = row0 + g, r_hi = row0 + g + 8;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
+  for (int i = 0; i < D / 8; ++i) {
+    const int c = 8 * i + 2 * t;
     if (r_lo < L) {
       *reinterpret_cast<uint32_t*>(ob + (long long)r_lo * so.l + c) =
-          pack_bf16(oacc[dt][0] * inv_lo, oacc[dt][1] * inv_lo);
+          pack_bf16(oacc[4 * i + 0] * inv_lo, oacc[4 * i + 1] * inv_lo);
     }
     if (r_hi < L) {
       *reinterpret_cast<uint32_t*>(ob + (long long)r_hi * so.l + c) =
-          pack_bf16(oacc[dt][2] * inv_hi, oacc[dt][3] * inv_hi);
+          pack_bf16(oacc[4 * i + 2] * inv_hi, oacc[4 * i + 3] * inv_hi);
     }
   }
-  if (lse != nullptr && t == 0) {  // logsumexp of the scaled scores, [B, H, L]
+  if (lse != nullptr && t == 0) {  // natural-log logsumexp of the scaled scores, [B, H, L]
     float* lb = lse + ((long long)batch * gridDim.y + head) * L;
-    if (r_lo < L) lb[r_lo] = m_lo + __logf(l_lo);
-    if (r_hi < L) lb[r_hi] = m_hi + __logf(l_hi);
+    if (r_lo < L) lb[r_lo] = (m_lo + __log2f(l_lo)) * CUDART_LN2_F;
+    if (r_hi < L) lb[r_hi] = (m_hi + __log2f(l_hi)) * CUDART_LN2_F;
   }
 }
 
@@ -360,20 +354,26 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
            Strides sq, Strides sk, Strides sv, Strides so, float sm_scale, int dtype,
            cudaStream_t stream) {
   if (dtype == 0) {
-    constexpr size_t smem = attn_mma_smem_bytes<D>();
-    static_assert(smem <= 227 * 1024, "K/V stages exceed an SM's shared memory");
+    using T = hopper::Tile<D>;
+    CUtensorMap mq, mk, mv;
+    int err = hopper_host::encode_blhd(&mq, q, B, L, H, D, sq.b, sq.l, sq.h, T::CH, kBM, 0);
+    if (err == 0) err = hopper_host::encode_blhd(&mk, k, B, L, H, D, sk.b, sk.l, sk.h, T::CH, kBN, 1);
+    if (err == 0) err = hopper_host::encode_blhd(&mv, v, B, L, H, D, sv.b, sv.l, sv.h, T::CH, kBN, 2);
+    if (err != 0) return err;
+    constexpr uint32_t smem = FwdSmem<D>::BYTES;
+    static_assert(smem <= 227 * 1024, "tiles exceed an SM's shared memory");
     static bool smem_raised = false;  // per head dim; setting it twice is harmless
     if (!smem_raised) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          attn_mma_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
+      const cudaError_t e = cudaFuncSetAttribute(
+          attn_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return hopper_host::kSmemRefused + static_cast<int>(e);
       smem_raised = true;
     }
     dim3 grid((L + kBM - 1) / kBM, H, B);
-    attn_mma_bf16<D><<<grid, kWarps * 32, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, L, sq, sk, sv,
-        so, sm_scale);
+    attn_fwd_wgmma<D><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, L, so, sm_scale * CUDART_L2E_F);
+    const int e = static_cast<int>(cudaGetLastError());
+    return e == 0 ? 0 : hopper_host::kLaunchRefused + e;
   } else {
     dim3 grid((L + kFM - 1) / kFM, H, B);
     attn_fma<D><<<grid, kFThreads, 0, stream>>>(
@@ -386,7 +386,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = launched), or
-// cudaErrorInvalidValue for a head dim / dtype this file does not build.
+// cudaErrorInvalidValue for a head dim / dtype this file does not build;
+// hopper_host's codes for a refused tensor map or shared-memory size.
 // lse: null, or fp32 [B, H, L] contiguous, written with each row's logsumexp.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, int B,
@@ -405,5 +406,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 96: return launch<96>(q, k, v, o, lse, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
     case 128: return launch<128>(q, k, v, o, lse, B, L, H, sq, sk, sv, so, sm_scale, dtype, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory of one bf16 block at head dim D (0 if not built).
+extern "C" int flash_attention_fwd_smem(int D) {
+  switch (D) {
+    case 32: return static_cast<int>(FwdSmem<32>::BYTES);
+    case 64: return static_cast<int>(FwdSmem<64>::BYTES);
+    case 96: return static_cast<int>(FwdSmem<96>::BYTES);
+    case 128: return static_cast<int>(FwdSmem<128>::BYTES);
+    default: return 0;
   }
 }

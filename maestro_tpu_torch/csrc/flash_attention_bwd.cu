@@ -10,34 +10,52 @@
 // logsumexp (lse) gives P = exp(scale * s - lse) tile by tile, so no pass
 // needs a whole row of scores.
 //
-// What bounds it on an H100: operations.  The five products need 10*B*H*L^2*D
-// operations (the bound chip_smoke.py states); this design spends 14 (S is
-// formed twice) to stay free of atomics and deterministic:
-//   1. attn_bwd_delta: Delta = rowsum(dO o O) in fp32, [B, H, L].
-//   2. attn_bwd_dkdv (one block per 64 keys of one (batch, head), a loop over
-//      32-query tiles): S^T, P^T, dV += P^T dO, dP^T, dS^T, dK += dS^T Q.
-//   3. attn_bwd_dq (one block per 64 queries, a loop over 32-key tiles):
-//      S, P, dP, dS, dQ += dS K.
-// Every output element is written by exactly one thread, once.  bf16 inputs
-// run all products on the tensor cores (mma.sync m16n8k16, fp32 accumulators;
-// P and dS rounded to bf16 as operands, as the forward rounds P); the K/V
-// (or Q/dO) tiles of a block live in shared memory, the streamed tiles arrive
-// by cp.async into a two-stage buffer and reach the tensor cores through
-// ldmatrix.  fp32 inputs take shared-memory FMA kernels with full fp32
-// products.  Keys and queries beyond L are masked in the kernels (no padding
-// in device memory).  dQ, dK, dV are written through strides, so they can be
-// the three slots of one [B, L, 3, H, D] buffer: the gradient of the fused qkv
-// projection, with no concatenation.
+// What bounds it on an H100: operations, 10*B*H*L^2*D for the five products.
+// bf16 inputs take three launches that do exactly those ten units:
+//   1. attn_bwd_delta: Delta = rowsum(dO o O) in fp32 and lse * log2 e, both
+//      [B, H, ceil(L / 64) * 64] (0 and +inf past L); the same launch zeroes
+//      the fp32 dQ scratch.
+//   2. attn_bwd_wgmma: one block per (128 keys, head, sample), two
+//      warpgroups of 64 keys each (256 threads, so up to 255 registers a
+//      thread: dK and dV alone hold 128 at D = 128).  Thread 0 loads the
+//      block's K and V tiles once by TMA, then streams 64-query tiles of Q
+//      and dO through a two-stage ring (TMA completing on mbarriers; the
+//      second warpgroup to finish a tile refills its stage, so neither waits
+//      for the other), each tile with its rows of lse * log2 e and Delta
+//      (bulk copies of rows the Delta launch pads to whole tiles).  Per query
+//      tile each warpgroup runs five wgmma products, P and dS rounded to bf16
+//      as operands (as the forward rounds P):
+//        S^T = K Q^T, dP^T = V dO^T (both operands in shared memory),
+//        P^T = exp2(S^T * scale * log2 e - lse * log2 e) (keys past L: 0),
+//        dV += P^T dO (A from registers, dO MN-major),
+//        dS^T = P^T o (dP^T - Delta),  dK += dS^T Q (A from registers),
+//        dQ_part = dS K over its 64 keys: dS^T goes to shared memory (128-byte
+//        swizzle, read MN-major), the fp32 partial is staged in shared memory
+//        and added into the scratch by one bulk reduce-add
+//        (cp.reduce.async.bulk .add.f32), which overlaps the next tile.
+//      dK (times scale) and dV leave the registers once, through strides.
+//   3. attn_bwd_dq_convert: scratch times scale -> bf16, into dq's strides.
+// The dQ scratch is [B, H, ceil(L / 64), D / 8, 128, 4] fp32: for each
+// 64-query tile the wgmma accumulators in thread order (float4 j of thread t
+// holds row 16(t/32) + (t%32)/4 (+8 for its last two), columns 8j + 2(t%4),
+// +1), so staging is conflict-free and the convert pass undoes it.
+// Determinism: dK and dV are each written once by one thread and are
+// bit-identical from run to run; dQ's fp32 sums arrive from 2 * ceil(L / 128)
+// blocks in an order that varies, so dq may differ by a rounding between runs.
+// Keys and queries beyond L arrive zero-filled by TMA and are masked (lse =
+// +inf, Delta = 0, P = 0), never stored; the 4-D tensor maps keep every tile
+// inside its sample.  dQ, dK, dV are written through strides, so they can be
+// the three slots of one [B, L, 3, H, D] buffer.
+// fp32 inputs take shared-memory FMA kernels with full fp32 products (14
+// units: S is formed in a dK/dV kernel and again in a dQ kernel).
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 
 #include <math_constants.h>
 
-#include "mma_helpers.cuh"
+#include "hopper.cuh"
 
 namespace {
-
-using namespace mma;
 
 struct Strides {
   long long b, l, h;  // element strides of batch, row, head; D is contiguous
@@ -53,365 +71,332 @@ __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
 }
 
 // ---------------------------------------------------------------------------
-// 1. Delta = rowsum(dO o O): one warp per (batch, row, head)
+// 1. Delta = rowsum(dO o O): one warp per (batch, row, head), rows of `rows`
+//    entries (L, or L rounded up to the query tile with Delta = 0 past L).
+//    With lse2 set it also writes lse * log2 e there (+inf past L), the rows
+//    the wgmma kernel copies tile by tile; every thread also zeroes a share of
+//    the dQ scratch (n_zero float4s, may be 0).
 // ---------------------------------------------------------------------------
 constexpr int kDeltaWarps = 8;
 
 template <typename T>
 __global__ void __launch_bounds__(kDeltaWarps * 32)
 attn_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-               int B, int L, int H, int D, Strides so, Strides sd) {
+               const float* __restrict__ lse, float* __restrict__ lse2,
+               float4* __restrict__ zero, long long n_zero, int B, int L, int rows, int H, int D,
+               Strides so, Strides sd) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_zero; i += stride) {
+    zero[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   const long long item = (long long)blockIdx.x * kDeltaWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (item >= (long long)B * L * H) return;
+  if (item >= (long long)B * rows * H) return;
   const int head = item % H;
-  const int row = (item / H) % L;
-  const int batch = item / ((long long)H * L);
-  const T* op = o + batch * so.b + row * so.l + head * so.h;
-  const T* dp = dout + batch * sd.b + row * sd.l + head * sd.h;
+  const int row = (item / H) % rows;
+  const int batch = item / ((long long)H * rows);
+  const long long bh = (long long)batch * H + head;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f(op[c]), to_f(dp[c]), acc);
+  if (row < L) {
+    const T* op = o + batch * so.b + row * so.l + head * so.h;
+    const T* dp = dout + batch * sd.b + row * sd.l + head * sd.h;
+    for (int c = lane; c < D; c += 32) acc = fmaf(to_f(op[c]), to_f(dp[c]), acc);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) delta[((long long)batch * H + head) * L + row] = acc;
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) {
+    delta[bh * rows + row] = acc;
+    if (lse2 != nullptr) {
+      lse2[bh * rows + row] = row < L ? lse[bh * L + row] * CUDART_L2E_F : CUDART_INF_F;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
-// 2./3. bf16 tensor-core kernels
+// 2. bf16 wgmma kernel
 // ---------------------------------------------------------------------------
-constexpr int kWarps = 4;   // 16 rows (keys in dkdv, queries in dq) per warp
-constexpr int kBlk = 64;    // rows per block
-constexpr int kStep = 32;   // streamed rows per tile (queries in dkdv, keys in dq)
-constexpr int kPad = 8;     // bf16 elements of row padding: rows 16 bytes apart mod 128
+constexpr int kBK = 128;       // keys per block: 64 per warpgroup
+constexpr int kBQ = 64;        // queries per streamed tile
+constexpr int kStages = 2;     // Q/dO tiles in flight
+constexpr int kThreads = 256;  // two warpgroups, up to 255 registers a thread
 
 template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  // K and V of the block's 64 keys, two stages of Q and dO tiles, lse and Delta
-  return sizeof(__nv_bfloat16) * (2 * kBlk + 2 * 2 * kStep) * (D + kPad) +
-         sizeof(float) * 2 * 2 * kStep;
-}
+struct BwdSmem {
+  static constexpr uint32_t KT = kBK * D * 2;  // bytes of the K (or V) tile
+  static constexpr uint32_t QT = kBQ * D * 2;  // bytes of one Q (or dO) tile
+  static constexpr uint32_t DST = kBQ * 64 * 2;  // one warpgroup's dS^T tile (64 keys x 64 queries)
+  static constexpr uint32_t ACC = kBQ * D * 4;   // one warpgroup's fp32 dQ partial
+  static constexpr uint32_t K = 0;
+  static constexpr uint32_t V = KT;
+  static constexpr uint32_t Q = 2 * KT;                 // stage s at Q + s * QT
+  static constexpr uint32_t DO = Q + kStages * QT;      // stage s at DO + s * QT
+  static constexpr uint32_t DS = DO + kStages * QT;     // warpgroup w at DS + w * DST
+  static constexpr uint32_t STAGE = DS + 2 * DST;       // warpgroup w at STAGE + w * ACC
+  static constexpr uint32_t LSE = STAGE + 2 * ACC;      // [kStages][kBQ] lse * log2 e
+  static constexpr uint32_t DEL = LSE + kStages * kBQ * 4;  // [kStages][kBQ] Delta
+  static constexpr uint32_t BARS = DEL + kStages * kBQ * 4;  // kv_full, full[kStages]
+  static constexpr uint32_t DONE = BARS + 8 * (1 + kStages);    // int count[kStages]
+  static constexpr uint32_t BYTES = DONE + 4 * kStages + 1024;  // + alignment slack
+};
 
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(__nv_bfloat16) * 2 * 2 * kStep * (D + kPad);  // two stages of K and V tiles
-}
-
-// rows [row0, row0 + rows) of one (batch, head) slice -> shared [rows][D + kPad],
-// 16-byte cp.async per vector, rows beyond L zero-filled (not committed here)
-template <int D>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                long long row_stride, int row0, int rows, int L,
-                                                int tid) {
-  constexpr int VEC = D / 8;
-  for (int idx = tid; idx < rows * VEC; idx += kWarps * 32) {
-    const int r = idx / VEC;
-    const int c = (idx % VEC) * 8;
-    if (row0 + r < L) {
-      cp_async_16(&dst[r * (D + kPad) + c], src + (long long)(row0 + r) * row_stride + c);
-    } else {
-      *reinterpret_cast<uint4*>(&dst[r * (D + kPad) + c]) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
-
-// One warp: C[16 x kStep] += A[16 rows of a_s, D] . B[kStep rows of b_s, D]^T,
-// both operands row-major in shared memory (A through ldmatrix, B through
-// ldmatrix as its transpose-free "col" operand).
-template <int D>
-__device__ __forceinline__ void warp_abt(float (&c)[kStep / 8][4], const __nv_bfloat16* a_s,
-                                         const __nv_bfloat16* b_s, int lane) {
-  constexpr int LD = D + kPad;
-  const int lm_mat = lane >> 3, lm_row = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t a[4];
-    ldmatrix_x4(a, &a_s[((lm_mat & 1) * 8 + lm_row) * LD + ks * 16 + (lm_mat >> 1) * 8]);
-#pragma unroll
-    for (int np = 0; np < kStep / 16; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &b_s[(np * 16 + (lm_mat >> 1) * 8 + lm_row) * LD + ks * 16 + (lm_mat & 1) * 8]);
-      mma_bf16_16816(c[2 * np], a, b[0], b[1]);
-      mma_bf16_16816(c[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// One warp, A held in registers: C[16 x kStep] += A[16, D] . B[kStep rows of b_s, D]^T
-template <int D>
-__device__ __forceinline__ void warp_rbt(float (&c)[kStep / 8][4], const uint32_t (&a)[D / 16][4],
-                                         const __nv_bfloat16* b_s, int lane) {
-  constexpr int LD = D + kPad;
-  const int lm_mat = lane >> 3, lm_row = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-    for (int np = 0; np < kStep / 16; ++np) {
-      uint32_t b[4];
-      ldmatrix_x4(b, &b_s[(np * 16 + (lm_mat >> 1) * 8 + lm_row) * LD + ks * 16 + (lm_mat & 1) * 8]);
-      mma_bf16_16816(c[2 * np], a[ks], b[0], b[1]);
-      mma_bf16_16816(c[2 * np + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-// One warp: acc[16 x D] += P[16 x kStep] (packed A fragments) . X[kStep rows of x_s, D]
-template <int D>
-__device__ __forceinline__ void warp_pv(float (&acc)[D / 8][4], const uint32_t (&p)[kStep / 16][4],
-                                        const __nv_bfloat16* x_s, int lane) {
-  constexpr int LD = D + kPad;
-  const int lm_mat = lane >> 3, lm_row = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < kStep / 16; ++kk) {
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, &x_s[(kk * 16 + (lm_mat & 1) * 8 + lm_row) * LD + dp * 16 +
-                                (lm_mat >> 1) * 8]);
-      mma_bf16_16816(acc[2 * dp], p[kk], b[0], b[1]);
-      mma_bf16_16816(acc[2 * dp + 1], p[kk], b[2], b[3]);
-    }
-  }
-}
-
-// this warp's 16 rows of acc -> out rows [row0, row0 + 16) (rows >= L skipped)
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long row_stride,
-                                           const float (&acc)[D / 8][4], float scale, int row0,
-                                           int L, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const int r_lo = row0 + g, r_hi = row0 + g + 8;
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (r_lo < L) {
-      *reinterpret_cast<uint32_t*>(out + (long long)r_lo * row_stride + c) =
-          pack_bf16(acc[dt][0] * scale, acc[dt][1] * scale);
-    }
-    if (r_hi < L) {
-      *reinterpret_cast<uint32_t*>(out + (long long)r_hi * row_stride + c) =
-          pack_bf16(acc[dt][2] * scale, acc[dt][3] * scale);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int L,
-                   Strides sq, Strides sk, Strides sv, Strides sd, Strides sx, float sm_scale) {
-  constexpr int LD = D + kPad;
-  constexpr int QT = kStep * LD;  // elements of one streamed Q (or dO) tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBlk][LD]
-  __nv_bfloat16* Vs = Ks + kBlk * LD;                               // [kBlk][LD]
-  __nv_bfloat16* Qs = Vs + kBlk * LD;                               // [2][kStep][LD]
-  __nv_bfloat16* Ds = Qs + 2 * QT;                                  // [2][kStep][LD] (dO)
-  float* lse_s = reinterpret_cast<float*>(Ds + 2 * QT);             // [2][kStep]
-  float* del_s = lse_s + 2 * kStep;                                 // [2][kStep]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int t = lane & 3;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int key0 = blockIdx.x * kBlk;
-
-  const __nv_bfloat16* qb = q + batch * sq.b + head * sq.h;
-  const __nv_bfloat16* db = dout + batch * sd.b + head * sd.h;
-  const float* lse_b = lse + ((long long)batch * gridDim.y + head) * L;
-  const float* del_b = delta + ((long long)batch * gridDim.y + head) * L;
-
-  load_rows_async<D>(Ks, k + batch * sk.b + head * sk.h, sk.l, key0, kBlk, L, tid);
-  load_rows_async<D>(Vs, v + batch * sv.b + head * sv.h, sv.l, key0, kBlk, L, tid);
-
-  auto load_tile = [&](int tile, int stage) {
-    const int qr0 = tile * kStep;
-    load_rows_async<D>(Qs + stage * QT, qb, sq.l, qr0, kStep, L, tid);
-    load_rows_async<D>(Ds + stage * QT, db, sd.l, qr0, kStep, L, tid);
-    cp_async_commit();
-    if (tid < kStep) {  // queries beyond L: lse = +inf gives P = 0
-      lse_s[stage * kStep + tid] = qr0 + tid < L ? lse_b[qr0 + tid] : CUDART_INF_F;
-    } else if (tid < 2 * kStep) {
-      const int i = tid - kStep;
-      del_s[stage * kStep + i] = qr0 + i < L ? del_b[qr0 + i] : 0.f;
-    }
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_wgmma(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+               const float* __restrict__ lse2, const float* __restrict__ delta,
+               float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv, int L, Strides sx, float sm_scale,
+               float scale_log2) {
+  using namespace hopper;
+  using T = Tile<D>;
+  using S = BwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - smem_u32(smem_raw));  // generic pointer to base
+  const uint32_t kv_full = base + S::BARS;
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  // warpgroups done with stage s, ever: the second of a tile sees an odd count
+  int* done = reinterpret_cast<int*>(gbase + S::DONE);
+  auto stage_done = [&](int s) {
+    __threadfence_block();
+    return (atomicAdd(done + s, 1) & 1) == 1;
   };
 
-  float dkacc[D / 8][4], dvacc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dkacc[i][j] = dvacc[i][j] = 0.f;
-  }
+  const int head = blockIdx.y, batch = blockIdx.z;
+  const int H = gridDim.y;
+  const int key0 = blockIdx.x * kBK;
+  const int n_q = (L + kBQ - 1) / kBQ;
+  const long long bh = (long long)batch * H + head;
 
-  const int n_tiles = (L + kStep - 1) / kStep;
-  load_tile(0, 0);  // commits the K/V loads with the first tile
-  const __nv_bfloat16* kw = Ks + warp * 16 * LD;  // this warp's 16 keys
-  const __nv_bfloat16* vw = Vs + warp * 16 * LD;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int stage = tile & 1;
-    if (tile + 1 < n_tiles) {
-      load_tile(tile + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // one thread issues every load: Q and dO tile `it` (TMA), and its rows of
+  // lse * log2 e and Delta (bulk copies of the padded rows), into stage it % kStages
+  auto load_qdo = [&](int it) {
+    const int s = it % kStages;
+    mbar_arrive_expect_tx(full(s), 2 * S::QT + 2 * kBQ * 4);
+    const uint32_t qs = base + S::Q + s * S::QT, ds = base + S::DO + s * S::QT;
+    for (int c = 0; c < D / T::CH; ++c) {
+      tma_load_4d(qs + c * kBQ * T::SW, &map_q, full(s), c * T::CH, head, it * kBQ, batch);
+      tma_load_4d(ds + c * kBQ * T::SW, &map_do, full(s), c * T::CH, head, it * kBQ, batch);
     }
-    __syncthreads();
-    const __nv_bfloat16* qs = Qs + stage * QT;
-    const __nv_bfloat16* ds = Ds + stage * QT;
-    const float* ls = lse_s + stage * kStep;
-    const float* dl = del_s + stage * kStep;
+    const long long row0 = bh * n_q * kBQ + it * kBQ;
+    bulk_load(base + S::LSE + s * kBQ * 4, lse2 + row0, kBQ * 4, full(s));
+    bulk_load(base + S::DEL + s * kBQ * 4, delta + row0, kBQ * 4, full(s));
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      done[s] = 0;
+    }
+    fence_barrier_init();
+    mbar_arrive_expect_tx(kv_full, 2 * S::KT);
+    for (int c = 0; c < D / T::CH; ++c) {
+      tma_load_4d(base + S::K + c * kBK * T::SW, &map_k, kv_full, c * T::CH, head, key0, batch);
+      tma_load_4d(base + S::V + c * kBK * T::SW, &map_v, kv_full, c * T::CH, head, key0, batch);
+    }
+    for (int it = 0; it < kStages && it < n_q; ++it) load_qdo(it);
+  }
+  __syncthreads();
 
-    // S^T = K Q^T for this warp's 16 keys x 32 queries; P^T = exp(scale S^T - lse[q])
-    float p[kStep / 8][4];
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+  const uint32_t k_w = base + S::K + wg * 64 * T::SW;  // this warpgroup's 64 keys
+  const uint32_t v_w = base + S::V + wg * 64 * T::SW;
+  const uint32_t ds_w = base + S::DS + wg * S::DST;
+  const uint32_t acc_w = base + S::STAGE + wg * S::ACC;
+  unsigned char* ds_gen = gbase + S::DS + wg * S::DST;
+  float4* acc_gen = reinterpret_cast<float4*>(gbase + S::STAGE + wg * S::ACC);
+  const int r_lo = key0 + wg * 64 + warp * 16 + g, r_hi = r_lo + 8;  // this thread's keys
+  const bool ok_lo = r_lo < L, ok_hi = r_hi < L;
+  const float* lse_s = reinterpret_cast<const float*>(gbase + S::LSE);
+  const float* del_s = reinterpret_cast<const float*>(gbase + S::DEL);
+
+  float dkacc[D / 2], dvacc[D / 2];
+  zero_regs(dkacc);
+  zero_regs(dvacc);
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_q; ++it) {
+    const int s = it % kStages;
+    mbar_wait(full(s), (it / kStages) & 1);
+    const uint32_t qs = base + S::Q + s * S::QT, dos = base + S::DO + s * S::QT;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each
+    float st[kBQ / 2], dpt[kBQ / 2];
+    zero_regs(st);
+    zero_regs(dpt);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kStep / 8; ++nt) p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
-    warp_abt<D>(p, kw, qs, lane);
-    uint32_t pf[kStep / 16][4];
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<kBQ>::ss<0, 0>(st, desc_k<D>(k_w, kBK, kk), desc_k<D>(qs, kBQ, kk), kk > 0);
+    }
+    wgmma_commit();
 #pragma unroll
-    for (int nt = 0; nt < kStep / 8; ++nt) {
-      const float l0 = ls[nt * 8 + 2 * t], l1 = ls[nt * 8 + 2 * t + 1];
-      p[nt][0] = __expf(p[nt][0] * sm_scale - l0);
-      p[nt][1] = __expf(p[nt][1] * sm_scale - l1);
-      p[nt][2] = __expf(p[nt][2] * sm_scale - l0);
-      p[nt][3] = __expf(p[nt][3] * sm_scale - l1);
-      pf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p[nt][0], p[nt][1]);
-      pf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p[nt][2], p[nt][3]);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<kBQ>::ss<0, 0>(dpt, desc_k<D>(v_w, kBK, kk), desc_k<D>(dos, kBQ, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T = exp2(S^T * scale * log2 e - lse * log2 e), keys past L masked;
+    // lse * log2 e of this thread's query columns 8j + 2t, +1 (+inf past L)
+    float l2[kBQ / 4];
+#pragma unroll
+    for (int j = 0; j < kBQ / 8; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(lse_s + s * kBQ + 8 * j + 2 * t);
+      l2[2 * j] = v.x;
+      l2[2 * j + 1] = v.y;
+    }
+#pragma unroll
+    for (int j = 0; j < kBQ / 8; ++j) {
+      st[4 * j + 0] = ok_lo ? exp2_approx(st[4 * j + 0] * scale_log2 - l2[2 * j]) : 0.f;
+      st[4 * j + 1] = ok_lo ? exp2_approx(st[4 * j + 1] * scale_log2 - l2[2 * j + 1]) : 0.f;
+      st[4 * j + 2] = ok_hi ? exp2_approx(st[4 * j + 2] * scale_log2 - l2[2 * j]) : 0.f;
+      st[4 * j + 3] = ok_hi ? exp2_approx(st[4 * j + 3] * scale_log2 - l2[2 * j + 1]) : 0.f;
+    }
+    uint32_t pf[kBQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pf[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
     }
     // dV += P^T dO
-    warp_pv<D>(dvacc, pf, ds, lane);
-
-    // dP^T = V dO^T; dS^T = P^T o (dP^T - Delta[q])
-    float dp[kStep / 8][4];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kStep / 8; ++nt) dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    warp_abt<D>(dp, vw, ds, lane);
-#pragma unroll
-    for (int nt = 0; nt < kStep / 8; ++nt) {
-      const float d0 = dl[nt * 8 + 2 * t], d1 = dl[nt * 8 + 2 * t + 1];
-      pf[nt >> 1][(nt & 1) * 2 + 0] =
-          pack_bf16(p[nt][0] * (dp[nt][0] - d0), p[nt][1] * (dp[nt][1] - d1));
-      pf[nt >> 1][(nt & 1) * 2 + 1] =
-          pack_bf16(p[nt][2] * (dp[nt][2] - d0), p[nt][3] * (dp[nt][3] - d1));
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      Wgmma<D>::template rs<1>(dvacc, pf[kk], desc_mn<D>(dos, kBQ, kk), 1);
     }
-    // dK += dS^T Q
-    warp_pv<D>(dkacc, pf, qs, lane);
-    __syncthreads();  // this stage is free for the load issued next iteration
-  }
+    wgmma_commit();
+    // Delta of the same columns (0 past L)
+    float dl[kBQ / 4];
+#pragma unroll
+    for (int j = 0; j < kBQ / 8; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(del_s + s * kBQ + 8 * j + 2 * t);
+      dl[2 * j] = v.x;
+      dl[2 * j + 1] = v.y;
+    }
+    // each product completes before the next operand is built, so the
+    // registers of an in-flight one stay out of the peak
+    wgmma_wait<0>();
+    fence_regs(dvacc);
+    fence_regs(pf);
 
-  const int kr0 = key0 + warp * 16;
-  store_rows<D>(dk + batch * sx.b + head * sx.h, sx.l, dkacc, sm_scale, kr0, L, lane);
-  store_rows<D>(dv + batch * sx.b + head * sx.h, sx.l, dvacc, 1.f, kr0, L, lane);
+    // dS^T = P^T o (dP^T - Delta)
+#pragma unroll
+    for (int j = 0; j < kBQ / 8; ++j) {
+      dpt[4 * j + 0] = st[4 * j + 0] * (dpt[4 * j + 0] - dl[2 * j]);
+      dpt[4 * j + 1] = st[4 * j + 1] * (dpt[4 * j + 1] - dl[2 * j + 1]);
+      dpt[4 * j + 2] = st[4 * j + 2] * (dpt[4 * j + 2] - dl[2 * j]);
+      dpt[4 * j + 3] = st[4 * j + 3] * (dpt[4 * j + 3] - dl[2 * j + 1]);
+    }
+    uint32_t sf[kBQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) sf[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+    }
+    // dS^T -> shared memory, rows = keys, 128-byte rows of 64 queries,
+    // 16-byte group j of row r stored at group j ^ (r % 8)
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = warp * 16 + g + 8 * (r & 1);
+        const int grp = 2 * kk + (r >> 1);  // query columns 8 * grp + 2t, +1
+        *reinterpret_cast<uint32_t*>(ds_gen + row * 128 + ((grp ^ g) << 4) + 4 * t) = sf[kk][r];
+      }
+    }
+    fence_proxy_async();
+    if (tid == 0) bulk_wait_read_all();  // the last reduce has read the staging buffer
+    named_bar_sync(1 + wg, 128);         // dS^T is in shared memory
+    // dK += dS^T Q, and the dQ partial = dS K over this warpgroup's 64 keys
+    float dq[D / 2];
+    zero_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      Wgmma<D>::template rs<1>(dkacc, sf[kk], desc_mn<D>(qs, kBQ, kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 64 / 16; ++kk) {
+      Wgmma<D>::template ss<1, 1>(dq, desc_mn<64>(ds_w, 64, kk), desc_mn<D>(k_w, kBK, kk),
+                                  kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dkacc);
+    fence_regs(sf);
+    fence_regs(dq);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc_gen[j * 128 + tid] = make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2], dq[4 * j + 3]);
+    }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);  // the staged partial is complete; Q and dO are read
+    if (tid == 0) {
+      bulk_reduce_add_f32(dq_acc + (bh * n_q + it) * kBQ * D, acc_w, S::ACC);
+      bulk_commit();
+      // the second warpgroup done with tile it refills its stage: neither
+      // waits for the other
+      if (stage_done(s) && it + kStages < n_q) load_qdo(it + kStages);
+    }
+    __syncwarp();  // warp 0 reconverges before the next warp-aligned wgmma
+  }
+  if (tid == 0) bulk_wait_all();
+
+  __nv_bfloat16* dkb = dk + batch * sx.b + head * sx.h;
+  __nv_bfloat16* dvb = dv + batch * sx.b + head * sx.h;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int c = 8 * i + 2 * t;
+    if (ok_lo) {
+      *reinterpret_cast<uint32_t*>(dkb + (long long)r_lo * sx.l + c) =
+          pack_bf16(dkacc[4 * i] * sm_scale, dkacc[4 * i + 1] * sm_scale);
+      *reinterpret_cast<uint32_t*>(dvb + (long long)r_lo * sx.l + c) =
+          pack_bf16(dvacc[4 * i], dvacc[4 * i + 1]);
+    }
+    if (ok_hi) {
+      *reinterpret_cast<uint32_t*>(dkb + (long long)r_hi * sx.l + c) =
+          pack_bf16(dkacc[4 * i + 2] * sm_scale, dkacc[4 * i + 3] * sm_scale);
+      *reinterpret_cast<uint32_t*>(dvb + (long long)r_hi * sx.l + c) =
+          pack_bf16(dvacc[4 * i + 2], dvacc[4 * i + 3]);
+    }
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attn_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int L, Strides sq, Strides sk, Strides sv,
-                 Strides sd, Strides sx, float sm_scale) {
-  constexpr int LD = D + kPad;
-  constexpr int KT = kStep * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kStep][LD]
-  __nv_bfloat16* Vs = Ks + 2 * KT;                                  // [2][kStep][LD]
+// ---------------------------------------------------------------------------
+// 3. dq = scale * scratch, from the fragment-ordered scratch into dq's strides
+// ---------------------------------------------------------------------------
+constexpr int kConvertThreads = 256;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int row0 = blockIdx.x * kBlk + warp * 16;  // first query row of this warp
-
-  const __nv_bfloat16* kb = k + batch * sk.b + head * sk.h;
-  const __nv_bfloat16* vb = v + batch * sv.b + head * sv.h;
-
-  auto load_tile = [&](int tile, int stage) {
-    load_rows_async<D>(Ks + stage * KT, kb, sk.l, tile * kStep, kStep, L, tid);
-    load_rows_async<D>(Vs + stage * KT, vb, sv.l, tile * kStep, kStep, L, tid);
-    cp_async_commit();
-  };
-  const int n_tiles = (L + kStep - 1) / kStep;
-  load_tile(0, 0);
-
-  // Q and dO fragments (A operands) straight from device memory, once per block
-  const int r_lo = row0 + g, r_hi = row0 + g + 8;
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  {
-    const __nv_bfloat16* qb = q + batch * sq.b + head * sq.h;
-    const __nv_bfloat16* db = dout + batch * sd.b + head * sd.h;
-    const uint32_t* q_lo = reinterpret_cast<const uint32_t*>(qb + (long long)r_lo * sq.l);
-    const uint32_t* q_hi = reinterpret_cast<const uint32_t*>(qb + (long long)r_hi * sq.l);
-    const uint32_t* d_lo = reinterpret_cast<const uint32_t*>(db + (long long)r_lo * sd.l);
-    const uint32_t* d_hi = reinterpret_cast<const uint32_t*>(db + (long long)r_hi * sd.l);
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const int c = ks * 8 + t;  // 32-bit word index: element ks*16 + 2t
-      qf[ks][0] = r_lo < L ? q_lo[c] : 0u;
-      qf[ks][1] = r_hi < L ? q_hi[c] : 0u;
-      qf[ks][2] = r_lo < L ? q_lo[c + 4] : 0u;
-      qf[ks][3] = r_hi < L ? q_hi[c + 4] : 0u;
-      df[ks][0] = r_lo < L ? d_lo[c] : 0u;
-      df[ks][1] = r_hi < L ? d_hi[c] : 0u;
-      df[ks][2] = r_lo < L ? d_lo[c + 4] : 0u;
-      df[ks][3] = r_hi < L ? d_hi[c + 4] : 0u;
-    }
+__global__ void __launch_bounds__(kConvertThreads)
+attn_bwd_dq_convert(const float4* __restrict__ acc, __nv_bfloat16* __restrict__ dq, int L, int H,
+                    int D, int n_q, long long n4, Strides sx, float sm_scale) {
+  const long long i = (long long)blockIdx.x * kConvertThreads + threadIdx.x;
+  if (i >= n4) return;
+  const long long per_tile = 16LL * D;  // float4s of one 64-query tile
+  const long long tile = i / per_tile;
+  const int within = static_cast<int>(i % per_tile);
+  const int j = within / 128, t = within % 128;
+  const int qt = static_cast<int>(tile % n_q);
+  const long long bh = tile / n_q;
+  const int head = static_cast<int>(bh % H);
+  const long long batch = bh / H;
+  const int row = qt * kBQ + 16 * (t / 32) + (t % 32) / 4;
+  const int col = 8 * j + 2 * (t % 4);
+  const float4 v = acc[i];
+  __nv_bfloat16* base = dq + batch * sx.b + head * sx.h + col;
+  if (row < L) {
+    *reinterpret_cast<uint32_t*>(base + (long long)row * sx.l) =
+        hopper::pack_bf16(v.x * sm_scale, v.y * sm_scale);
   }
-  const long long bh = ((long long)batch * gridDim.y + head) * L;
-  const float lse_lo = r_lo < L ? lse[bh + r_lo] : 0.f;
-  const float lse_hi = r_hi < L ? lse[bh + r_hi] : 0.f;
-  const float del_lo = r_lo < L ? delta[bh + r_lo] : 0.f;
-  const float del_hi = r_hi < L ? delta[bh + r_hi] : 0.f;
-
-  float dqacc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dqacc[i][0] = dqacc[i][1] = dqacc[i][2] = dqacc[i][3] = 0.f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int key0 = tile * kStep;
-    const int stage = tile & 1;
-    if (tile + 1 < n_tiles) {
-      load_tile(tile + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* ks = Ks + stage * KT;
-    const __nv_bfloat16* vs = Vs + stage * KT;
-
-    // S = Q K^T, P = exp(scale S - lse), keys beyond L masked to P = 0
-    float p[kStep / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kStep / 8; ++nt) p[nt][0] = p[nt][1] = p[nt][2] = p[nt][3] = 0.f;
-    warp_rbt<D>(p, qf, ks, lane);
-    // dP = dO V^T
-    float dp[kStep / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kStep / 8; ++nt) dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    warp_rbt<D>(dp, df, vs, lane);
-    uint32_t sf[kStep / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < kStep / 8; ++nt) {
-      const int col = key0 + nt * 8 + 2 * t;
-      const float p0 = col < L ? __expf(p[nt][0] * sm_scale - lse_lo) : 0.f;
-      const float p1 = col + 1 < L ? __expf(p[nt][1] * sm_scale - lse_lo) : 0.f;
-      const float p2 = col < L ? __expf(p[nt][2] * sm_scale - lse_hi) : 0.f;
-      const float p3 = col + 1 < L ? __expf(p[nt][3] * sm_scale - lse_hi) : 0.f;
-      sf[nt >> 1][(nt & 1) * 2 + 0] = pack_bf16(p0 * (dp[nt][0] - del_lo), p1 * (dp[nt][1] - del_lo));
-      sf[nt >> 1][(nt & 1) * 2 + 1] = pack_bf16(p2 * (dp[nt][2] - del_hi), p3 * (dp[nt][3] - del_hi));
-    }
-    // dQ += dS K
-    warp_pv<D>(dqacc, sf, ks, lane);
-    __syncthreads();
+  if (row + 8 < L) {
+    *reinterpret_cast<uint32_t*>(base + (long long)(row + 8) * sx.l) =
+        hopper::pack_bf16(v.z * sm_scale, v.w * sm_scale);
   }
-  store_rows<D>(dq + batch * sx.b + head * sx.h, sx.l, dqacc, sm_scale, row0, L, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -583,6 +568,7 @@ struct Args {
   const void *q, *k, *v, *o, *dout;
   const float* lse;
   float* delta;
+  float* dq_acc;
   void *dq, *dk, *dv;
   int B, L, H;
   Strides sq, sk, sv, so, sd, sx;
@@ -590,13 +576,14 @@ struct Args {
   cudaStream_t stream;
 };
 
+// rows: entries per (batch, head) row of delta (and of lse2 when set)
 template <typename T>
-int launch_delta(const Args& a, int D) {
-  const long long items = (long long)a.B * a.L * a.H;
+int launch_delta(const Args& a, int D, int rows, float* lse2, long long n_zero4) {
+  const long long items = (long long)a.B * rows * a.H;
   const unsigned blocks = static_cast<unsigned>((items + kDeltaWarps - 1) / kDeltaWarps);
   attn_bwd_delta<T><<<blocks, kDeltaWarps * 32, 0, a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.B, a.L, a.H, D,
-      a.so, a.sd);
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.lse, lse2,
+      reinterpret_cast<float4*>(a.dq_acc), n_zero4, a.B, a.L, rows, a.H, D, a.so, a.sd);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -604,35 +591,51 @@ template <int D>
 int launch(const Args& a, int dtype) {
   using bf = __nv_bfloat16;
   if (dtype == 0) {
-    int err = launch_delta<bf>(a, D);
+    using T = hopper::Tile<D>;
+    const int n_q = (a.L + kBQ - 1) / kBQ;
+    const long long n4 = (long long)a.B * a.H * n_q * 16 * D;  // float4s of the dQ scratch
+    CUtensorMap mq, mk, mv, mdo;
+    int err = hopper_host::encode_blhd(&mq, a.q, a.B, a.L, a.H, D, a.sq.b, a.sq.l, a.sq.h, T::CH,
+                                       kBQ, 0);
+    if (err == 0) {
+      err = hopper_host::encode_blhd(&mk, a.k, a.B, a.L, a.H, D, a.sk.b, a.sk.l, a.sk.h, T::CH,
+                                     kBK, 1);
+    }
+    if (err == 0) {
+      err = hopper_host::encode_blhd(&mv, a.v, a.B, a.L, a.H, D, a.sv.b, a.sv.l, a.sv.h, T::CH,
+                                     kBK, 2);
+    }
+    if (err == 0) {
+      err = hopper_host::encode_blhd(&mdo, a.dout, a.B, a.L, a.H, D, a.sd.b, a.sd.l, a.sd.h,
+                                     T::CH, kBQ, 3);
+    }
     if (err != 0) return err;
-    constexpr size_t smem_kv = dkdv_smem_bytes<D>();
-    constexpr size_t smem_q = dq_smem_bytes<D>();
-    static_assert(smem_kv <= 227 * 1024, "dkdv tiles exceed an SM's shared memory");
+    // delta holds two [B, H, n_q * 64] halves: Delta, then lse * log2 e
+    const long long half = (long long)a.B * a.H * n_q * kBQ;
+    float* lse2 = a.delta + half;
+    err = launch_delta<bf>(a, D, n_q * kBQ, lse2, n4);
+    if (err != 0) return err;
+    constexpr uint32_t smem = BwdSmem<D>::BYTES;
+    static_assert(smem <= 227 * 1024, "tiles exceed an SM's shared memory");
     static bool smem_raised = false;  // per head dim; setting it twice is harmless
     if (!smem_raised) {
-      cudaError_t e = cudaFuncSetAttribute(attn_bwd_dkdv_bf16<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem_kv));
-      if (e != cudaSuccess) return static_cast<int>(e);
-      e = cudaFuncSetAttribute(attn_bwd_dq_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_q));
-      if (e != cudaSuccess) return static_cast<int>(e);
+      const cudaError_t e = cudaFuncSetAttribute(
+          attn_bwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return hopper_host::kSmemRefused + static_cast<int>(e);
       smem_raised = true;
     }
-    dim3 grid((a.L + kBlk - 1) / kBlk, a.H, a.B);
-    attn_bwd_dkdv_bf16<D><<<grid, kWarps * 32, smem_kv, a.stream>>>(
-        static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
-        static_cast<const bf*>(a.dout), a.lse, a.delta, static_cast<bf*>(a.dk),
-        static_cast<bf*>(a.dv), a.L, a.sq, a.sk, a.sv, a.sd, a.sx, a.sm_scale);
+    dim3 grid((a.L + kBK - 1) / kBK, a.H, a.B);
+    attn_bwd_wgmma<D><<<grid, kThreads, smem, a.stream>>>(
+        mq, mk, mv, mdo, lse2, a.delta, a.dq_acc, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
+        a.L, a.sx, a.sm_scale, a.sm_scale * CUDART_L2E_F);
     err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    attn_bwd_dq_bf16<D><<<grid, kWarps * 32, smem_q, a.stream>>>(
-        static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
-        static_cast<const bf*>(a.dout), a.lse, a.delta, static_cast<bf*>(a.dq), a.L, a.sq, a.sk,
-        a.sv, a.sd, a.sx, a.sm_scale);
+    if (err != 0) return hopper_host::kLaunchRefused + err;
+    const unsigned blocks = static_cast<unsigned>((n4 + kConvertThreads - 1) / kConvertThreads);
+    attn_bwd_dq_convert<<<blocks, kConvertThreads, 0, a.stream>>>(
+        reinterpret_cast<const float4*>(a.dq_acc), static_cast<bf*>(a.dq), a.L, a.H, D, n_q, n4,
+        a.sx, a.sm_scale);
   } else {
-    int err = launch_delta<float>(a, D);
+    int err = launch_delta<float>(a, D, a.L, nullptr, 0);
     if (err != 0) return err;
     dim3 grid_kv((a.L + kFK - 1) / kFK, a.H, a.B);
     attn_bwd_dkdv_fma<D><<<grid_kv, kFThreads, 0, a.stream>>>(
@@ -653,19 +656,25 @@ int launch(const Args& a, int dtype) {
 
 }  // namespace
 
-// Three launches on `stream` (Delta, dK/dV, dQ).  Returns cudaGetLastError()
-// after them (0 = launched), or cudaErrorInvalidValue for a head dim / dtype
-// this file does not build.  lse: the forward's fp32 [B, H, L]; delta: fp32
-// [B, H, L] scratch; dq, dk, dv share the strides (x_sb, x_sl, x_sh).
+// Three launches on `stream` (bf16: Delta + zeroed scratch, the wgmma kernel,
+// the dq convert; fp32: Delta, dK/dV, dQ).  Returns cudaGetLastError() after
+// them (0 = launched), or cudaErrorInvalidValue for a head dim / dtype this
+// file does not build; hopper_host's codes for a refused tensor map or
+// shared-memory size.  lse: the
+// forward's fp32 [B, H, L]; delta: fp32 scratch, [B, H, L] for fp32 and
+// [2, B, H, ceil(L / 64) * 64] for bf16 (Delta, lse * log2 e); dq_acc: for bf16
+// the fp32 dQ scratch of B * H * ceil(L / 64) * 64 * D floats (any contents;
+// null for fp32); dq, dk, dv share the strides (x_sb, x_sl, x_sh).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int L, int H, int D,
-    long long q_sb, long long q_sl, long long q_sh, long long k_sb, long long k_sl,
+    const float* lse, float* delta, float* dq_acc, void* dq, void* dk, void* dv, int B, int L,
+    int H, int D, long long q_sb, long long q_sl, long long q_sh, long long k_sb, long long k_sl,
     long long k_sh, long long v_sb, long long v_sl, long long v_sh, long long o_sb,
     long long o_sl, long long o_sh, long long d_sb, long long d_sl, long long d_sh,
     long long x_sb, long long x_sl, long long x_sh, float sm_scale, int dtype, void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, L, H,
+  if (dtype == 0 && dq_acc == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, o, dout, lse, delta, dq_acc, dq, dk, dv, B, L, H,
                Strides{q_sb, q_sl, q_sh}, Strides{k_sb, k_sl, k_sh}, Strides{v_sb, v_sl, v_sh},
                Strides{o_sb, o_sl, o_sh}, Strides{d_sb, d_sl, d_sh}, Strides{x_sb, x_sl, x_sh},
                sm_scale, static_cast<cudaStream_t>(stream)};
@@ -675,5 +684,16 @@ extern "C" int flash_attention_bwd(
     case 96: return launch<96>(a, dtype);
     case 128: return launch<128>(a, dtype);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory of one bf16 wgmma block at head dim D (0 if not built).
+extern "C" int flash_attention_bwd_smem(int D) {
+  switch (D) {
+    case 32: return static_cast<int>(BwdSmem<32>::BYTES);
+    case 64: return static_cast<int>(BwdSmem<64>::BYTES);
+    case 96: return static_cast<int>(BwdSmem<96>::BYTES);
+    case 128: return static_cast<int>(BwdSmem<128>::BYTES);
+    default: return 0;
   }
 }

@@ -1,6 +1,6 @@
-// Warp-level tensor-core and copy helpers shared by the attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mma.sync m16n8k16 bf16 with
-// fp32 accumulators, ldmatrix, cp.async.
+// Warp-level tensor-core and copy helpers of the pool backward
+// (attn_pool_bwd.cu): mma.sync m16n8k16 bf16 with fp32 accumulators,
+// ldmatrix, cp.async.
 //
 // Fragment layouts of mma.m16n8k16 (thread (g, t) = (lane / 4, lane % 4)):
 //   A [16 x 16]: a0 = (row g, k 2t..2t+1), a1 = (row g+8, k 2t..), a2 = (row g, k 2t+8..),

@@ -9,6 +9,8 @@ plain versions on the GPU by chip_smoke.py.
 
 from __future__ import annotations
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -173,3 +175,75 @@ def test_mha_qkv_and_logsumexp():
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="3, H, D"):
         TA.mha_qkv(qkv.detach()[:, :, :2], 1.0)
+
+
+# (batch, L, heads, head dim): the main path's attention views (MAE medium's
+# streams and trunk, tiny's 64-dim heads, the reference-split 32-dim heads)
+# and the two other head dims the kernels are built for
+MAIN_PATH_VIEWS = [(2, 1880, 6, 128), (2, 470, 6, 128), (2, 200, 3, 64), (2, 129, 16, 32),
+                   (1, 100, 8, 96)]
+
+
+@pytest.mark.parametrize(("b", "l", "h", "d"), MAIN_PATH_VIEWS)
+def test_fused_projection_views_are_read_in_place(b, l, h, d):
+    """Every q, k, v view of a fused [B, L, 3, H, D] projection meets the TMA
+    rule, and both launches get the views' own pointers and strides: no copy."""
+    qkv = torch.empty((b, l, 3 * h * d), dtype=torch.bfloat16).view(b, l, 3, h, d)
+    q, k, v = qkv.unbind(dim=2)
+    assert all(TA.kernel_view_ok(t) for t in (q, k, v))
+    out = torch.empty((b, l, h, d), dtype=torch.bfloat16)
+    lse = torch.empty((b, h, l))
+    args = TA._fwd_args(q, k, v, out, lse, d**-0.5)
+    assert args[:5] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+    assert args[5:9] == (b, l, h, d)
+    assert args[9:12] == (3 * l * h * d, 3 * h * d, d)  # q's batch, row, head strides
+    assert args[-1] == 0  # bf16
+    dqkv = torch.empty((b, l, 3, h, d), dtype=torch.bfloat16)
+    scratch = torch.empty(TA.dq_scratch_shape(b, l, h, d))
+    args = TA._bwd_args(q, k, v, out, lse, out, torch.empty((b, h, l)), scratch, dqkv, d**-0.5)
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[7] == scratch.data_ptr()
+    assert args[8:11] == tuple(dqkv[:, :, i].data_ptr() for i in range(3))
+
+
+def test_unreadable_view_raises_instead_of_copying():
+    """A view the kernels cannot map (D not contiguous, a base or a stride off
+    16 bytes) raises in _fwd_args / _bwd_args; only the backward's dout is
+    ever copied, by _bwd before it builds its arguments."""
+    b, l, h, d = 1, 64, 2, 32
+    buf = torch.empty((b, l, h * d + 8), dtype=torch.bfloat16)
+    good = buf[..., : h * d].view(b, l, h, d)
+    shifted = buf[..., 1 : 1 + h * d].view(b, l, h, d)  # base 2 bytes off
+    strided_d = torch.empty((b, l, h, 2 * d), dtype=torch.bfloat16)[..., ::2]
+    odd_rows = torch.empty((b, l, h * d + 1), dtype=torch.bfloat16)[..., : h * d].view(b, l, h, d)
+    assert TA.kernel_view_ok(good)
+    out = torch.empty((b, l, h, d), dtype=torch.bfloat16)
+    for bad in (shifted, strided_d, odd_rows):
+        assert not TA.kernel_view_ok(bad)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            TA._fwd_args(bad, good, good, out, None, 1.0)
+        with pytest.raises(ValueError, match="dout must"):
+            TA._bwd_args(good, good, good, out, torch.empty((b, h, l)), bad,
+                         torch.empty((b, h, l)), None, torch.empty((b, l, 3, h, d)), 1.0)
+
+
+def test_dq_scratch_shape_and_layout():
+    """The backward's fp32 dQ scratch: one 64-query tile per (sample, head),
+    held in wgmma accumulator order, about 189 MB at the finetune trunk's
+    [32, 1880, 6, 128]; the convert pass's plain version puts every element
+    back where the accumulator layout says it belongs."""
+    assert TA.dq_scratch_shape(32, 1880, 6, 128) == (32, 6, 30, 16, 128, 4)
+    assert math.prod(TA.dq_scratch_shape(32, 1880, 6, 128)) * 4 == 188_743_680
+    b, l, h, d = 2, 100, 3, 32
+    shape = TA.dq_scratch_shape(b, l, h, d)
+    scratch = torch.arange(math.prod(shape), dtype=torch.float32).reshape(shape)
+    got = TA.dq_from_scratch_plain(scratch, l, 0.5)
+    assert got.shape == (b, l, h, d) and got.dtype == torch.float32
+    # every real row once; the padding rows (100..127) dropped
+    assert got.unique().numel() == got.numel() == b * l * h * d
+    rng = np.random.default_rng(0)
+    for bi, hi, qt, j, t, e in zip(*(rng.integers(0, n, 200) for n in shape)):
+        row = qt * 64 + 16 * (t // 32) + (t % 32) // 4 + 8 * (e // 2)
+        col = 8 * j + 2 * (t % 4) + e % 2
+        if row < l:
+            assert got[bi, row, hi, col] == 0.5 * scratch[bi, hi, qt, j, t, e]
