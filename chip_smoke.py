@@ -4,13 +4,15 @@
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of requests and steps
 
 Builds the hand-written CUDA kernels from ``maestro_tpu_torch/csrc`` (and
-reports the attention kernels' registers, shared memory and spills from the
-``ptxas`` log), holds each against its plain PyTorch version on the card (the
+reports the attention and pool kernels' registers, shared memory and spills
+from the ``ptxas`` log), holds each against its plain PyTorch version on the card (the
 attention kernels also at one row past a 128-row tile for every head dim, at
 the full-length trunk at batch 1, and twice on the same inputs: dk and dv
-bit-identical, dq within 1 bf16 ulp of max(|dq|, rms(dq))), then drives the
-port's main paths with seeded random weights and inputs (MAE medium,
-FLAIR-HUB plan, group fusion, 3 trunk blocks, bf16 compute, fp32 parameters):
+bit-identical, dq within 1 bf16 ulp of max(|dq|, rms(dq)); the pool
+backward twice as well: dx and the parameter gradients bit-identical), then
+drives the port's main paths with seeded random weights and inputs (MAE
+medium, FLAIR-HUB plan, group fusion, 3 trunk blocks, bf16 compute, fp32
+parameters):
 
 * serving — ``serve.make_predict_fn(model, "finetune")`` for requests of batch
   1, 4 and 8: launch counts, shapes, finiteness and agreement with the same
@@ -117,6 +119,10 @@ BWD_CHECK_SHAPES = (
 REPEAT_CHECK_SHAPES = ((8, 470, 6, 128), (2, 1880, 6, 128), (2, 129, 16, 32))
 # the attention kernels of csrc/flash_attention*.cu, for the ptxas report
 ATTN_KERNEL_NAMES = ("attn_fwd_wgmma", "attn_bwd_wgmma", "attn_bwd_dq_convert", "attn_bwd_delta")
+# the pool kernels of csrc/attn_pool*.cu and pool_common.cuh
+POOL_KERNEL_NAMES = ("pool_u", "pool_fwd_rows", "pool_bwd_rows", "pool_mma", "pool_bwd_finish",
+                     "column_sums")
+POOL_SMEM_WIDTHS = (128, 384, 768, 1024)
 # head dims 96, 96, 16, 48, 128: every one attn_pool.cu is built for
 POOL_CHECK_SHAPES = ((8, 26, 64, 768), (8, 26, 128, 768), (2, 2, 40, 128),
                      (2, 5, 64, 384), (2, 3, 40, 1024))
@@ -126,6 +132,9 @@ POOL_HEADS = 8
 POOL_BWD_CHECK_CASES = (((8, 26, 128, 768), True), ((8, 26, 64, 768), True),
                         ((2, 5, 40, 128), True), ((2, 26, 33, 384), True),
                         ((2, 5, 40, 1024), True), ((8, 26, 64, 768), False))
+# two pool backward calls on the same inputs: dx and the four parameter
+# gradients bit-identical (every sum in a fixed order, no atomics)
+POOL_REPEAT_CASES = (((8, 26, 128, 768), True), ((8, 26, 64, 768), False))
 REQUEST_BATCHES = (1, 4, 8)
 ATTN_PER_REQUEST = 39  # 4 streams x 9 blocks + 3 trunk blocks
 POOL_PER_REQUEST = 16  # ref grid 32 rows / seg_chunk_rows 2
@@ -297,12 +306,48 @@ def loss_bound(n: int, f: int, size: int, backward: bool) -> tuple[float, str]:
     return bound(nbytes, 10 * n * f, PEAK_FP32_FLOPS)
 
 
+def bound_mixed(nbytes: float, fp32_ops: float, tc_ops: float) -> tuple[float, str]:
+    """Least time (ms) of work with fp32 operations on the CUDA cores and bf16
+    products on the tensor cores: the bytes at the memory rate against the two
+    kinds of operations, each at its own peak, one after the other."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = fp32_ops / PEAK_FP32_FLOPS + tc_ops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else "operations"
+
+
 def pool_bound(b: int, d: int, l: int, e: int, heads: int) -> tuple[float, str]:
+    """The pool's least work (bf16): x read once, out, m and den written, the
+    parameters read; per (batch, date, position) row 4EH + 8E fp32 operations
+    (the logits, the pooled sum, LayerNorm), per position the 2E^2 product with
+    W_v on the tensor cores, and u's 2E^2 once."""
+    rows, pos = b * d * l, b * l
+    nbytes = rows * e * 2 + pos * e * 2 + 2 * pos * heads * 4 + 2 * e * e * 2 + 3 * e * 4
+    return bound_mixed(nbytes, rows * (4 * e * heads + 8 * e) + 2 * e * e, pos * 2 * e * e)
+
+
+def pool_bwd_bound(b: int, d: int, l: int, e: int, heads: int,
+                   need_dx: bool = True) -> tuple[float, str]:
+    """The pool backward's least work (bf16): reads x, out, g, m, den and the
+    parameters, writes dx (when wanted) and the four fp32 parameter gradients;
+    per row 12EH fp32 operations (logits, da, dy, du, the pooled sum) and
+    11E for LayerNorm, d_ln_scale and d_ln_bias, 10E more for the LayerNorm
+    backward into dx; per position the 4E^2 of dybar and dW_v on the tensor
+    cores; u, dW_k and d_query 6E^2 once."""
+    rows, pos = b * d * l, b * l
+    nbytes = (rows * e * 2 * (2 if need_dx else 1) + 2 * pos * e * 2 + 2 * pos * heads * 4
+              + 2 * e * e * (2 + 4) + 3 * e * 4 * 2)
+    fp32_ops = rows * (12 * e * heads + (21 if need_dx else 11) * e) + 6 * e * e
+    return bound_mixed(nbytes, fp32_ops, pos * 4 * e * e)
+
+
+def pool_bound_jax_count(b: int, d: int, l: int, e: int, heads: int) -> tuple[float, str]:
+    """The bound by the JAX kernel's count (a kv projection of every row),
+    beside the least-work bound so that earlier readings stay comparable."""
     nbytes = b * d * l * e * 2 + b * l * e * 2 + 2 * b * l * heads * 4 + 2 * e * e * 2 + 3 * e * 4
     return bound(nbytes, 4 * b * d * l * e * e, PEAK_BF16_FLOPS)
 
 
-def pool_bwd_bound(b: int, d: int, l: int, e: int, heads: int) -> tuple[float, str]:
+def pool_bwd_bound_jax_count(b: int, d: int, l: int, e: int, heads: int) -> tuple[float, str]:
     # reads x, out, g (bf16), m, den (fp32) and the parameters; writes dx (bf16)
     # and the four fp32 parameter gradients; B*D*L*(12E^2 + 8EH + 25E)
     # operations (the JAX package's _bwd_cost)
@@ -546,11 +591,34 @@ def pool_bwd_checks(attn_pool, gen) -> float:
                 rel = ((gk.float() - gw).norm() / gw.norm()).item()
                 if not (torch.isfinite(gk).all() and rel <= POOL_BWD_PARAM_RTOL):
                     raise AssertionError(f"{label} {name}: relative norm error {rel}")
-                row[name] = {"rel_norm_err": rel, "max_abs_err": (gk.float() - gw).abs().max().item()}
+                row[name] = {"rel_norm_err": rel,
+                             "max_err_over_tolerance": rel / POOL_BWD_PARAM_RTOL,
+                             "max_abs_err": (gk.float() - gw).abs().max().item()}
             emit(row)
             del x, params, out, g, got, ref_x, ref_p, ref, want
     emit({"check": "attentive_pool_bwd", "cases": 2 * len(POOL_BWD_CHECK_CASES), "ok": True})
     return dx_err
+
+
+def pool_repeat_checks(attn_pool, gen) -> None:
+    """Two pool backward calls on the same inputs: dx and the four parameter
+    gradients bit-identical (their sums run in a fixed order, no atomics)."""
+    names = ("dx", "d_ln_scale", "d_ln_bias", "d_w_kv", "d_query")
+    for shape, need_dx in POOL_REPEAT_CASES:
+        x, sc, bi, w, q = pool_inputs(shape, torch.bfloat16, gen)
+        w16 = w.to(torch.bfloat16)
+        out, m, den = attn_pool.attentive_pool(x, sc, bi, w, q, POOL_HEADS, w_kv_bf16=w16)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+        first, second = (attn_pool.attentive_pool_bwd(x, sc, bi, w16, q, out, m, den, g,
+                                                      POOL_HEADS, need_dx=need_dx)
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        equal = {n: torch.equal(a, c) for n, a, c in zip(names, first, second) if a is not None}
+        emit({"check": "attentive_pool_bwd_repeat", "shape": list(shape), "dx_wanted": need_dx,
+              "bit_identical": equal})
+        if not all(equal.values()):
+            raise AssertionError(f"pool bwd repeat {list(shape)}: bit-identical {equal}")
+        del x, sc, bi, w, q, w16, out, m, den, g, first, second
 
 
 def serving_phase(model, batches, predict, attention, attn_pool, vit, want_profile) -> dict:
@@ -999,6 +1067,7 @@ def main() -> None:
     # ---- 2. the build (every source compiled in parallel at first use)
     attention._kernel()
     attn_pool._kernel()
+    attn_pool._bwd_kernel()
     fused_loss._kernel()
     log = str(cuda_build.build_info.get("log", ""))
     emit({"build": {
@@ -1011,6 +1080,11 @@ def main() -> None:
             f"D={d}": {"fwd": attention.smem_bytes(d, backward=False),
                        "bwd": attention.smem_bytes(d, backward=True)}
             for d in attention.SUPPORTED_HEAD_DIMS},
+        "pool_kernels": ptxas_kernels(log, POOL_KERNEL_NAMES),
+        "pool_rows_dynamic_smem_bytes": {
+            f"E={e}": {"fwd": attn_pool.smem_bytes(e, backward=False),
+                       "bwd": attn_pool.smem_bytes(e, backward=True)}
+            for e in POOL_SMEM_WIDTHS},
         "max_registers": max((int(ln.split("Used ")[1].split(" registers")[0])
                               for ln in log.splitlines() if "Used " in ln and " registers" in ln),
                              default=None),
@@ -1032,16 +1106,18 @@ def main() -> None:
             out_p, m_p, den_p = attn_pool.attentive_pool_plain(*args, POOL_HEADS)
             name = f"pool {shape} {dtype}"
             max_abs, over = check_close(name + " out", out, out_p, POOL_TOL[dtype])
-            m_err, _ = check_close(name + " m", m, m_p, POOL_STATS_TOL[dtype])
-            den_err, _ = check_close(name + " den", den, den_p, POOL_STATS_TOL[dtype])
+            m_err, m_over = check_close(name + " m", m, m_p, POOL_STATS_TOL[dtype])
+            den_err, den_over = check_close(name + " den", den, den_p, POOL_STATS_TOL[dtype])
             emit({"check": "attentive_pool_fwd", "dtype": str(dtype), "shape": list(shape),
                   "heads": POOL_HEADS, "tolerance_x_abs_plus_rms": POOL_TOL[dtype],
                   "max_abs_err": max_abs, "max_err_over_tolerance": over,
                   "stats_tolerance": POOL_STATS_TOL[dtype], "m_max_abs_err": m_err,
-                  "den_max_abs_err": den_err})
+                  "m_max_err_over_tolerance": m_over, "den_max_abs_err": den_err,
+                  "den_max_err_over_tolerance": den_over})
             if dtype == torch.bfloat16 and shape == POOL_CHECK_SHAPES[0]:
                 pool_err = max_abs
     pool_bwd_err = pool_bwd_checks(attn_pool, gen)
+    pool_repeat_checks(attn_pool, gen)
     model_cfg = ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3)
     model, plan = build_model(
         datasets, MaskConfig(), model_cfg, dtype=torch.bfloat16, device="cuda",
@@ -1104,17 +1180,23 @@ def main() -> None:
     pool_plain_ms = time_ms(lambda: attn_pool.attentive_pool_plain(*pargs, POOL_HEADS), 5)
     pool_bound_ms, pool_bound_by = pool_bound(*pool_shape, POOL_HEADS)
     del pargs
-    # the pool at the supervised steps' shapes: forward at the finetune shape,
-    # backward at the finetune and probe shapes (ref rows per chunk x grid 32)
+    # the pool at the supervised steps' shapes: forward at the finetune and
+    # probe shapes, backward at both (ref rows per chunk x grid 32)
     ft_shape = (sup["timed"]["finetune"]["batch"], 26, SUP_CHUNK["finetune"] * 32, 768)
     pr_shape = (sup["timed"]["probe"]["batch"], 26, SUP_CHUNK["probe"] * 32, 768)
-    pargs = pool_inputs(ft_shape, torch.bfloat16, gen)
-    w16 = pargs[3].to(torch.bfloat16)
-    pool_ft_ms = time_ms(lambda: attn_pool.attentive_pool(*pargs, POOL_HEADS, w_kv_bf16=w16), 10)
-    pool_ft_plain_ms = time_ms(lambda: attn_pool.attentive_pool_plain(*pargs, POOL_HEADS), 3,
-                               warmup=1)
-    pool_ft_bound_ms, _ = pool_bound(*ft_shape, POOL_HEADS)
-    del pargs, w16
+    pool_fwd_rows = {}
+    for shape, phase in ((ft_shape, "finetune"), (pr_shape, "probe")):
+        pargs = pool_inputs(shape, torch.bfloat16, gen)
+        w16 = pargs[3].to(torch.bfloat16)
+        bound_ms, bound_by = pool_bound(*shape, POOL_HEADS)
+        pool_fwd_rows[phase] = {
+            "shape": list(shape), "launches_per_step": SUP_LAUNCHES[phase][2],
+            "ms": time_ms(lambda: attn_pool.attentive_pool(*pargs, POOL_HEADS, w_kv_bf16=w16), 10),
+            "plain_ms": time_ms(lambda: attn_pool.attentive_pool_plain(*pargs, POOL_HEADS), 3,
+                                warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_jax_count": pool_bound_jax_count(*shape, POOL_HEADS)[0]}
+        del pargs, w16
     pool_bwd_rows = []
     for shape, phase in ((ft_shape, "finetune"), (pr_shape, "probe")):
         x, sc, bi, w, q = pool_inputs(shape, torch.bfloat16, gen)
@@ -1126,10 +1208,12 @@ def main() -> None:
             x, sc, bi, w16, q, out, m, den, g, POOL_HEADS, need_dx=need_dx), 10)
         plain_ms = time_ms(lambda: attn_pool.attentive_pool_bwd_plain(
             x, sc, bi, w, q, out, m, den, g, POOL_HEADS, need_dx=need_dx), 3, warmup=1)
-        bound_ms, bound_by = pool_bwd_bound(*shape, POOL_HEADS)
+        bound_ms, bound_by = pool_bwd_bound(*shape, POOL_HEADS, need_dx)
         pool_bwd_rows.append({"shape": list(shape), "phase": phase, "dx": need_dx,
                               "launches_per_step": SUP_LAUNCHES[phase][3], "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+                              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                              "bound_ms_jax_count":
+                                  pool_bwd_bound_jax_count(*shape, POOL_HEADS)[0]})
         del x, sc, bi, w, q, w16, out, m, den, g
     torch.cuda.empty_cache()
     # the finetune step's attention backward at full length: the trunk and the
@@ -1282,6 +1366,12 @@ def main() -> None:
         loss_entry("bwd", "masked_patchnorm_sums_bwd", 76, tl["loss_bwd"], loss_grad_err),
         {"name": "attentive_pool_fwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/attn_pool.cu",
+         "design": "factored form, three launches: pool_u (u = query . W_k per head, fp32), "
+                   "pool_fwd_rows (a block per run of positions, 4 columns a thread: x read "
+                   "once, LayerNorm, logits y . u_h, online softmax over 4-date steps, ybar_h = "
+                   "sum_d a y_d in fp32 registers; block sums by warp butterflies and "
+                   "fixed-order finishing), pool_mma (out_h = ybar_h . W_v,h^T, mma.sync "
+                   "64 x 64 tiles, cp.async ring)",
          "replaces": "maestro_tpu/ops/attn_pool.py:72",
          "launches": (serve_launches["pool"] + sl["finetune"]["pool_fwd"]
                       + sl["probe"]["pool_fwd"]),
@@ -1291,11 +1381,20 @@ def main() -> None:
          "max_abs_err": pool_err,
          "ms": pool_ms, "plain_ms": pool_plain_ms, "bound_ms": pool_bound_ms,
          "bound_by": pool_bound_by, "library_ms": None,
-         "times_are": "one launch at [8, 26, 64, 768] bf16, 8 heads; 16 launches per request",
-         "finetune_shape": {"shape": list(ft_shape), "ms": pool_ft_ms,
-                            "plain_ms": pool_ft_plain_ms, "bound_ms": pool_ft_bound_ms}},
+         "bound_ms_jax_count": pool_bound_jax_count(*pool_shape, POOL_HEADS)[0],
+         "times_are": "one call (three launches) at [8, 26, 64, 768] bf16, 8 heads; 16 calls "
+                      "per request; bound_ms counts the factored form's least work, "
+                      "bound_ms_jax_count the JAX kernel's",
+         "finetune_shape": pool_fwd_rows["finetune"], "probe_shape": pool_fwd_rows["probe"]},
         {"name": "attentive_pool_bwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/attn_pool_bwd.cu",
+         "design": "factored form, six launches: pool_u; pool_mma (dybar_h = W_v,h^T g_h, fp32 "
+                   "out); pool_bwd_rows (per position T and dybar, per 4-date step LayerNorm, "
+                   "logits and da in one block sum, a from the saved m and den, dlogit, dy, the "
+                   "LayerNorm backward into dx; du, ybar, d_ln_scale, d_ln_bias accumulated per "
+                   "block); pool_mma (dW_v = G_h^T ybar_h, K split in slices); column_sums and "
+                   "pool_bwd_finish (dW_k, d_query rank-1 from du; dW_v slices in order); no "
+                   "atomics",
          "replaces": "maestro_tpu/ops/attn_pool.py:123",
          "launches": sl["finetune"]["pool_bwd"] + sl["probe"]["pool_bwd"],
          "launches_by_path": {"serve": 0, "train": 0, "finetune": sl["finetune"]["pool_bwd"],
@@ -1303,8 +1402,8 @@ def main() -> None:
          "max_abs_err": pool_bwd_err,
          "ms": pool_bwd_rows[0]["ms"], "plain_ms": pool_bwd_rows[0]["plain_ms"],
          "bound_ms": pool_bwd_rows[0]["bound_ms"], "bound_by": pool_bwd_rows[0]["bound_by"],
-         "library_ms": None,
-         "times_are": f"one call (five launches) at {list(ft_shape)} bf16, 8 heads, with dx: "
+         "library_ms": None, "bound_ms_jax_count": pool_bwd_rows[0]["bound_ms_jax_count"],
+         "times_are": f"one call (six launches) at {list(ft_shape)} bf16, 8 heads, with dx: "
                       "the finetune step's; max_abs_err is dx's at [8, 26, 128, 768] against fp32 "
                       "autograd of the plain version",
          "per_shape": pool_bwd_rows},

@@ -1,729 +1,382 @@
 // attentive_pool_bwd: the backward of the attentive date pool (attn_pool.cu).
-// For every row (b, d, l) of x [B, D, L, E], with the forward's saved out,
-// m, den [B, L, *] and g = dLoss/dout [B, L, E], per head h (dh = E / H):
-//   T_h    = sum_{e in h} g_e out_e              (softmax pivot, from the saved out)
-//   y      = LayerNorm(x_d), k, v = y . W_kv^T   (recomputed as the forward does)
-//   a_h    = exp(logit_h - m_h) / den_h,  t_h = sum_{e in h} g_e v_e
-//   dlogit = a (t - T),  dv_e = a_h(e) g_e,  dk_e = dlogit_h(e) query_e dh^-1/2
-//   dy     = [dk, dv] . W_kv,  dx = LayerNorm backward of dy
-// Outputs: dx [B, D, L, E] in x's dtype (skipped for a null pointer), and fp32
-//   d_w_kv [2E, E] = sum_rows [dk, dv]^T y,   d_query = sum_rows dlogit k dh^-1/2,
-//   d_ln_scale = sum_rows dy * xhat,          d_ln_bias = sum_rows dy.
+// For every position (b, l) of x [B, D, L, E], with the forward's saved out,
+// m, den [B, L, *] and g = dLoss/dout [B, L, E], per head h (dh = E / H,
+// s = dh^-1/2, y_d = LayerNorm(x_d), u_h and ybar_h as in pool_common.cuh):
+//   dybar_h  = W_v,h^T g_h,   T_h = g_h . out_h          (the softmax pivot)
+//   a_dh     = exp(s y_d . u_h - m_h) / den_h,  da_dh = dybar_h . y_d
+//   dlogit   = a (da - T)
+//   dy_d     = sum_h (a_dh dybar_h + s dlogit_dh u_h),  dx = LayerNorm backward of dy
+//   du_h     = s sum dlogit_h y,   dW_k[j] = q_j du_h(j),   d_query_j = W_k[j] . du_h(j)
+//   dW_v,h   = sum_positions g_h (x) ybar_h
+//   d_ln_scale = sum dy * xhat,    d_ln_bias = sum dy
+// Outputs: dx [B, D, L, E] in x's dtype (skipped for a null pointer), fp32
+// d_w_kv [2E, E], d_query [E], d_ln_scale [E] and d_ln_bias [E].
 //
 // Replaces the JAX package's ops/attn_pool.py _bwd_kernel (with _vjp_bwd).
-// That kernel runs a sequential grid and accumulates the four parameter
-// gradients in revisited output blocks.  Blocks on Hopper run in parallel and
-// in no order, so here every parameter gradient is a per-block partial plus a
-// fixed-order finishing sum (no atomics: the result does not depend on block
-// scheduling).  Five launches:
-//   A  pool_bwd_dkv<T, DH>  block = (32-row tile, head), laid out as the
-//      forward kernel: LayerNorm of the tile into shared memory (bf16), the
-//      head's k and v columns of y . W_kv^T on the tensor cores (W_kv through
-//      a two-stage cp.async buffer), then per row a, t, T and dlogit; writes
-//      the bf16 [dk, dv] rows, the tile's d_query partial, and each row's
-//      LayerNorm mean and 1/std.
-//   B  pool_bwd_dx<T, E>    block = 32 rows x all E columns: dy = [dk, dv] .
-//      W_kv (reduction over 2E in 32-deep chunks, both operands through
-//      cp.async), then the LayerNorm backward from registers (row sums over
-//      the 8 warps through shared memory) -> dx, and the tile's d_ln_scale /
-//      d_ln_bias partials (column sums over the tile's rows by shuffles).
-//   C  pool_bwd_dw<T>       d_w_kv = [dk, dv]^T . y as a tiled product of its
-//      own: [128 x 128] output tiles, split over row slices (split-K), y
-//      recomputed from x and the saved statistics as the tile is staged; the
-//      slices' partials are summed in order by D.
-//   D, E  column_sums       fixed-order sums of the slice partials of d_w_kv
-//      and of the tiles' [d_query | d_ln_scale | d_ln_bias] partials.
-// A head's dy needs every head's dk and dv of the row, so the forward's
-// "(row tile, head)" block cannot finish the row: A stores [dk, dv] (bf16,
-// 2E per row) and B and C read it back.  At [32, 26, 128, 768] that is 327 MB
-// written and read twice, about 1 GB of traffic a launch beyond the roughly
-// 0.33 GB of x, dx, g and out the work needs.
+// That kernel recomputes the kv projection of every row and forms dy and
+// d_w_kv as products over [dk, dv] rows: 12*E^2 operations a row.  Here the
+// factored form needs about 12*E*H + 21*E fp32 operations a row and two
+// [E x E] products a position, in six launches (no atomics: every sum runs
+// in a fixed order, so two calls on the same inputs give the same bits):
+//   1 pool_u            u [H, E], as in the forward.
+//   2 pool_mma          dybar [B*L, H, E] fp32 = g_h . W_v,h on the tensor
+//                       cores (M = B*L, N = E, K = dh per head).
+//   3 pool_bwd_rows     one block per run of positions, kCols columns of E
+//                       a thread; per position T and dybar into shared
+//                       memory, then the dates in steps of kDC: x read once
+//                       (cp.async a step ahead), LayerNorm statistics (fp64
+//                       sums), xhat and y, one block reduction of the logits,
+//                       da = y . dybar_h, T on a position's first step and
+//                       the next step's LayerNorm sums, a from the saved m
+//                       and den, dlogit, dy; a second reduction for the
+//                       LayerNorm backward into dx (skipped without dx).
+//                       Every warp finalizes the reductions itself, so a
+//                       step has one barrier a reduction.  du and ybar
+//                       accumulate in shared memory, d_ln_scale and
+//                       d_ln_bias in registers (each thread its own columns);
+//                       writes ybar (bf16, the operand of launch 4) and the
+//                       block's du | d_ln_scale | d_ln_bias partial.  Bound by
+//                       its fp32 work (12*E*H + 21*E a row at 67 TFLOP/s);
+//                       x is read and dx written once.  Its four [H, E] fp32
+//                       arrays (u, dybar, ybar, du) take 96 KB of shared
+//                       memory at E = 768, so two blocks (6 warps) share an
+//                       SM; with 4 columns a thread (12 warps) it measured
+//                       slower: its instruction count holds it back.
+//   4 pool_mma          dW_v partials = G_h^T . ybar_h (M = dh, N = E, K =
+//                       B*L split into `splits` slices).
+//   5 column_sums       the blocks' partials of launch 3, summed in order.
+//   6 pool_bwd_finish   dW_k and d_query from du (the rank-1 terms), and
+//                       dW_v as the in-order sum of launch 4's slices.
+// No [dk, dv] row of the kv projection's gradient is formed (2E a row, 327 MB
+// of bf16 at [32, 26, 128, 768]), and no product runs over every (batch,
+// date, position) row.
 //
-// What bounds it on an H100: operations.  12*E*E + 8*E*H + 25*E operations a
-// row (the JAX package's _bwd_cost): three products of [rows, E] x [E, 2E]
-// size on the tensor cores (k/v recompute, dy, d_w_kv), against about
-// 4*E bytes a row of x, dx, g and out.  A and B stream all of W_kv (2.4 MB of
-// bf16 at E = 768) through shared memory once per 32-row tile, from L2, as
-// the forward does; that and mma.sync (no wgmma, no TMA) keep them well above
-// the bound.
-//
-// Precision: LayerNorm statistics, softmax, dlogit and every sum are fp32;
-// products take bf16 operands (y, W_kv, [dk, dv]) with fp32 accumulation, for
-// both input dtypes (fp32 x is normalized in fp32 and rounded to bf16 only as
-// an operand).
+// Precision: logits, softmax, u, dybar, da, dlogit, du and every sum are fp32;
+// the LayerNorm statistics, xhat and y as in the forward (fp64 sums, the
+// plain version's order of operations, y rounded to x's dtype); W_kv is bf16;
+// the tensor-core operands are bf16: g (rounded for fp32 x) and ybar, with
+// fp32 accumulation.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "mma_helpers.cuh"
+#include "pool_common.cuh"
 
 namespace {
 
-using mma::cp_async_16;
-using mma::cp_async_commit;
-using mma::cp_async_wait;
-using mma::ldmatrix_x4;
-using mma::ldmatrix_x4_trans;
-using mma::mma_bf16_16816;
-using mma::pack_bf16;
+using pool::bf16;
+using pool::kDC;
+using pool::kMaxHeads;
 
-constexpr int kRows = 32;    // rows of one tile in A and B (the partial-sum granularity)
-constexpr int kRG = 2;       // 16-row groups of a tile
-constexpr int kKC = 64;      // A: W_kv columns (reduction dim E) per shared chunk
-constexpr int kBKC = 32;     // B: W_kv rows (reduction dim 2E) per shared chunk
-constexpr int kCT = 128;     // C: output tile [f x e]
-constexpr int kCK = 32;      // C: rows (reduction dim) per shared chunk
-constexpr int kPad = 8;      // bf16 padding of shared rows: rows 16 bytes apart mod 128
-constexpr int kMaxE = 1024;  // LayerNorm keeps a row in registers: 32 lanes x 4 x 8
+constexpr int kCols = 8;     // columns of E a thread owns
+constexpr int kStages = 2;   // x of this step and of the next (a thread's own columns)
+constexpr int kWarps = pool::kMaxWarps<kCols>;
+constexpr int kVL = kDC * kMaxHeads;   // logits (then da) of a step, one (date, head) a lane
+constexpr int kV12 = 2 * kDC;          // LayerNorm sums of the next step (fp64)
+constexpr int kVR = 2 * kVL + kMaxHeads;  // a warp's row: logits, da, T
+constexpr int kV4 = 2 * kDC;           // LayerNorm backward sums of a step
+// a warp's own finalized values: a, dlogit [kMaxHeads][kDC], the next step's
+// mu, rstd [kDC], this step's LayerNorm backward means c1, c2 [kDC]
+constexpr int kFA = 0, kFDl = kFA + kVL, kFMu = kFDl + kVL, kFRstd = kFMu + kDC,
+              kFC1 = kFRstd + kDC, kFC2 = kFC1 + kDC, kWF = kFC2 + kDC;
+static_assert(kVL == 32, "the finalize gives each lane of a warp one (date, head)");
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&out)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
+// floats before the x stages (a multiple of 4: the stages start 16-byte aligned)
+__host__ __device__ int bwd_rows_floats(int E) {
+  return 4 * kMaxHeads * E + 2 * kWarps * kV12 * 2 + 2 * kWarps * kVR + kWarps * kV4 + kWarps * kWF;
 }
 
-__device__ __forceinline__ void load8(const float* p, float (&out)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+size_t bwd_rows_smem(int E, size_t elem) {
+  return sizeof(float) * bwd_rows_floats(E) + elem * kStages * kDC * E;
 }
 
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// ---------------------------------------------------------------- kernel A
-template <int DH>
-constexpr int kColSplits = DH % 32 == 0 ? 2 : 1;
-
-template <int DH>
-size_t dkv_smem_bytes(int E) {
-  return sizeof(__nv_bfloat16) * (static_cast<size_t>(kRows) * (E + kPad) +
-                                  2 * static_cast<size_t>(2 * DH) * (kKC + kPad)) +
-         sizeof(float) * (3 * kRows * kColSplits<DH> + kRG * DH);
-}
-
-// T: dtype of x, out and g.  Block (tile of 32 rows, head); per 16-row group
-// NH k-warps and NH v-warps, each with DH / NH of the head's k or v columns.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kRG * 64 * kColSplits<DH>)
-pool_bwd_dkv(const T* __restrict__ x, const float* __restrict__ ln_scale,
-             const float* __restrict__ ln_bias, const __nv_bfloat16* __restrict__ w_kv,
-             const float* __restrict__ query, const T* __restrict__ out,
-             const T* __restrict__ gout, const float* __restrict__ m_in,
-             const float* __restrict__ den_in, __nv_bfloat16* __restrict__ dkv,
-             float* __restrict__ part, float* __restrict__ mu_out,
-             float* __restrict__ rstd_out, long long n_rows, int D, int L, int E, int H,
-             float eps, float sm_scale) {
-  constexpr int NH = kColSplits<DH>;
-  constexpr int DW = DH / NH;            // columns of this warp
-  constexpr int NT = DW / 8;             // n-tiles of this warp
-  constexpr int WARPS = 2 * NH * kRG;
-  constexpr int THREADS = WARPS * 32;
-  constexpr int LN_ROWS = kRows / WARPS;
-  constexpr int WLD = kKC + kPad;
-  constexpr int WSTAGE = 2 * DH * WLD;   // one W stage: the head's k rows, then its v rows
-  static_assert(NT % 2 == 0, "ldmatrix.x4 feeds two n-tiles at a time");
-  static_assert(kRows % WARPS == 0, "rows divide over the warps for LayerNorm");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int YLD = E + kPad;
-  __nv_bfloat16* Ys = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kRows][YLD]
-  __nv_bfloat16* Ws = Ys + kRows * YLD;                            // [2][2*DH][WLD]
-  float* logit_s = reinterpret_cast<float*>(Ws + 2 * WSTAGE);      // [kRows][NH]
-  float* t_s = logit_s + kRows * NH;                               // [kRows][NH]
-  float* piv_s = t_s + kRows * NH;                                 // [kRows][NH]
-  float* dq_s = piv_s + kRows * NH;                                // [kRG][DH]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int group = warp % kRG;
-  const bool v_role = (warp / kRG) % 2 == 1;
-  const int half = warp / (2 * kRG);
-  const int head = blockIdx.y;
-  const long long tile_row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const int lm_mat = lane >> 3, lm_row = lane & 7;
-
-  const int n_chunks = E / kKC;
-  auto load_w_chunk = [&](int chunk, int stage) {
-    constexpr int VEC_PER_ROW = kKC / 8;
-    const int kc = chunk * kKC;
-    __nv_bfloat16* ws = Ws + stage * WSTAGE;
-    for (int idx = tid; idx < 2 * DH * VEC_PER_ROW; idx += THREADS) {
-      const int n = idx / VEC_PER_ROW;
-      const int c = (idx % VEC_PER_ROW) * 8;
-      const int wrow = (n < DH ? 0 : E - DH) + head * DH + n;
-      cp_async_16(&ws[n * WLD + c], w_kv + static_cast<long long>(wrow) * E + kc + c);
-    }
-    cp_async_commit();
-  };
-  load_w_chunk(0, 0);
-
-  // ---- LayerNorm of LN_ROWS rows per warp -> Ys (bf16); head 0 saves the statistics
-  for (int rr = 0; rr < LN_ROWS; ++rr) {
-    const int r = warp * LN_ROWS + rr;
-    const long long row = tile_row0 + r;
-    __nv_bfloat16* yrow = Ys + r * YLD;
-    if (row >= n_rows) {
-      for (int c = lane * 8; c < E; c += 256) {
-        *reinterpret_cast<uint4*>(yrow + c) = make_uint4(0u, 0u, 0u, 0u);
-      }
-      continue;
-    }
-    const T* xrow = x + row * E;
-    float vals[kMaxE / 256][8];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxE / 256; ++i) {
-      const int c = lane * 8 + i * 256;
-      if (c < E) {
-        load8(xrow + c, vals[i]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sum += vals[i][j];
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float mu = sum / E;
-    float sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxE / 256; ++i) {
-      if (lane * 8 + i * 256 < E) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float dlt = vals[i][j] - mu;
-          sq += dlt * dlt;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const float rstd = rsqrtf(sq / E + eps);
-    if (head == 0 && lane == 0) {
-      mu_out[row] = mu;
-      rstd_out[row] = rstd;
-    }
-#pragma unroll
-    for (int i = 0; i < kMaxE / 256; ++i) {
-      const int c = lane * 8 + i * 256;
-      if (c < E) {
-        float sc[8], bi[8];
-        load8(ln_scale + c, sc);
-        load8(ln_bias + c, bi);
-        uint4 packed;
-        uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          pw[j] = pack_bf16((vals[i][2 * j] - mu) * rstd * sc[2 * j] + bi[2 * j],
-                            (vals[i][2 * j + 1] - mu) * rstd * sc[2 * j + 1] + bi[2 * j + 1]);
-        }
-        *reinterpret_cast<uint4*>(yrow + c) = packed;
-      }
-    }
-  }
-
-  // ---- this warp's DW columns (of k or of v) of Ys . W_head^T, over E in chunks
-  float f[NT][4];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) f[nt][0] = f[nt][1] = f[nt][2] = f[nt][3] = 0.f;
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    const int stage = chunk & 1;
-    if (chunk + 1 < n_chunks) {
-      load_w_chunk(chunk + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // chunk visible to all; on the first chunk, Ys too
-    const int kc = chunk * kKC;
-    const __nv_bfloat16* ws = Ws + stage * WSTAGE + ((v_role ? DH : 0) + half * DW) * WLD;
-#pragma unroll
-    for (int ks = 0; ks < kKC / 16; ++ks) {
-      uint32_t a[4];
-      ldmatrix_x4(a, &Ys[(group * 16 + (lm_mat & 1) * 8 + lm_row) * YLD + kc + ks * 16 +
-                         (lm_mat >> 1) * 8]);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, &ws[(np * 16 + (lm_mat >> 1) * 8 + lm_row) * WLD + ks * 16 +
-                             (lm_mat & 1) * 8]);
-        mma_bf16_16816(f[2 * np], a, bfr[0], bfr[1]);
-        mma_bf16_16816(f[2 * np + 1], a, bfr[2], bfr[3]);
-      }
-    }
-    __syncthreads();  // this stage is free for the chunk after next
-  }
-
-  // ---- per row: partial logits (k-warps), partial t and T (v-warps)
-  const long long r_lo = tile_row0 + group * 16 + g, r_hi = r_lo + 8;
-  const bool ok_lo = r_lo < n_rows, ok_hi = r_hi < n_rows;
-  const long long per_b = static_cast<long long>(D) * L;
-  // (b, l) row of out, g, m and den for a row (b, d, l) of x
-  const long long p_lo = ok_lo ? (r_lo / per_b) * L + r_lo % L : 0;
-  const long long p_hi = ok_hi ? (r_hi / per_b) * L + r_hi % L : 0;
-  const int col0 = head * DH + half * DW;  // first of this warp's columns within k (or v)
-  float gv[NT][4];  // v-warps: g at their (row, column) pairs
-  float qv[NT][2];  // k-warps: the query at their columns
-  if (v_role) {
-    float t_lo = 0.f, t_hi = 0.f, pv_lo = 0.f, pv_hi = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = col0 + nt * 8 + 2 * t;
-      float2 glo = make_float2(0.f, 0.f), ghi = glo, olo = glo, ohi = glo;
-      if (ok_lo) {
-        glo = load2(gout + p_lo * E + c);
-        olo = load2(out + p_lo * E + c);
-      }
-      if (ok_hi) {
-        ghi = load2(gout + p_hi * E + c);
-        ohi = load2(out + p_hi * E + c);
-      }
-      gv[nt][0] = glo.x; gv[nt][1] = glo.y; gv[nt][2] = ghi.x; gv[nt][3] = ghi.y;
-      t_lo += f[nt][0] * glo.x + f[nt][1] * glo.y;
-      t_hi += f[nt][2] * ghi.x + f[nt][3] * ghi.y;
-      pv_lo += olo.x * glo.x + olo.y * glo.y;
-      pv_hi += ohi.x * ghi.x + ohi.y * ghi.y;
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      t_lo += __shfl_xor_sync(0xffffffffu, t_lo, off);
-      t_hi += __shfl_xor_sync(0xffffffffu, t_hi, off);
-      pv_lo += __shfl_xor_sync(0xffffffffu, pv_lo, off);
-      pv_hi += __shfl_xor_sync(0xffffffffu, pv_hi, off);
-    }
-    if (t == 0) {
-      t_s[(group * 16 + g) * NH + half] = t_lo;
-      t_s[(group * 16 + g + 8) * NH + half] = t_hi;
-      piv_s[(group * 16 + g) * NH + half] = pv_lo;
-      piv_s[(group * 16 + g + 8) * NH + half] = pv_hi;
-    }
-  } else {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      qv[nt][0] = query[col0 + nt * 8 + 2 * t];
-      qv[nt][1] = query[col0 + nt * 8 + 2 * t + 1];
-    }
-    float lg_lo = 0.f, lg_hi = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      lg_lo += f[nt][0] * qv[nt][0] + f[nt][1] * qv[nt][1];
-      lg_hi += f[nt][2] * qv[nt][0] + f[nt][3] * qv[nt][1];
-    }
-    lg_lo += __shfl_xor_sync(0xffffffffu, lg_lo, 1);
-    lg_lo += __shfl_xor_sync(0xffffffffu, lg_lo, 2);
-    lg_hi += __shfl_xor_sync(0xffffffffu, lg_hi, 1);
-    lg_hi += __shfl_xor_sync(0xffffffffu, lg_hi, 2);
-    if (t == 0) {
-      logit_s[(group * 16 + g) * NH + half] = lg_lo;
-      logit_s[(group * 16 + g + 8) * NH + half] = lg_hi;
-    }
-  }
-  __syncthreads();
-
-  // ---- softmax weight and dlogit of rows g, g + 8 (every warp of the group)
-  float lg_lo = 0.f, lg_hi = 0.f, tt_lo = 0.f, tt_hi = 0.f, pv_lo = 0.f, pv_hi = 0.f;
-#pragma unroll
-  for (int hh = 0; hh < NH; ++hh) {
-    lg_lo += logit_s[(group * 16 + g) * NH + hh];
-    lg_hi += logit_s[(group * 16 + g + 8) * NH + hh];
-    tt_lo += t_s[(group * 16 + g) * NH + hh];
-    tt_hi += t_s[(group * 16 + g + 8) * NH + hh];
-    pv_lo += piv_s[(group * 16 + g) * NH + hh];
-    pv_hi += piv_s[(group * 16 + g + 8) * NH + hh];
-  }
-  float a_lo = 0.f, a_hi = 0.f;
-  if (ok_lo) a_lo = expf(lg_lo * sm_scale - m_in[p_lo * H + head]) / den_in[p_lo * H + head];
-  if (ok_hi) a_hi = expf(lg_hi * sm_scale - m_in[p_hi * H + head]) / den_in[p_hi * H + head];
-  const float dl_lo = a_lo * (tt_lo - pv_lo), dl_hi = a_hi * (tt_hi - pv_hi);
-
-  const long long E2 = 2LL * E;
-  if (v_role) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = E + col0 + nt * 8 + 2 * t;
-      if (ok_lo) store2(dkv + r_lo * E2 + c, a_lo * gv[nt][0], a_lo * gv[nt][1]);
-      if (ok_hi) store2(dkv + r_hi * E2 + c, a_hi * gv[nt][2], a_hi * gv[nt][3]);
-    }
-  } else {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = col0 + nt * 8 + 2 * t;
-      if (ok_lo) {
-        store2(dkv + r_lo * E2 + c, dl_lo * qv[nt][0] * sm_scale, dl_lo * qv[nt][1] * sm_scale);
-      }
-      if (ok_hi) {
-        store2(dkv + r_hi * E2 + c, dl_hi * qv[nt][0] * sm_scale, dl_hi * qv[nt][1] * sm_scale);
-      }
-      // d_query: column sums of dlogit * k over the group's rows
-      float s0 = dl_lo * f[nt][0] + dl_hi * f[nt][2];
-      float s1 = dl_lo * f[nt][1] + dl_hi * f[nt][3];
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      }
-      if (g == 0) {
-        dq_s[group * DH + half * DW + nt * 8 + 2 * t] = s0;
-        dq_s[group * DH + half * DW + nt * 8 + 2 * t + 1] = s1;
-      }
-    }
-  }
-  __syncthreads();
-  for (int c = tid; c < DH; c += THREADS) {
-    float s = 0.f;
-#pragma unroll
-    for (int gr = 0; gr < kRG; ++gr) s += dq_s[gr * DH + c];
-    part[static_cast<long long>(blockIdx.x) * 3 * E + head * DH + c] = s * sm_scale;
-  }
-}
-
-// ---------------------------------------------------------------- kernel B
-constexpr int kBWarps = 8;
-
-template <int E>
-constexpr size_t dx_smem_bytes() {
-  return sizeof(__nv_bfloat16) * 2 * (static_cast<size_t>(kRows) * (kBKC + kPad) +
-                                      static_cast<size_t>(kBKC) * (E + kPad)) +
-         sizeof(float) * 2 * kBWarps * kRows;
-}
-
-// Block: 32 rows x all E columns; warp w owns columns [w E/8, (w+1) E/8) of
-// both 16-row groups.
-template <typename T, int E>
-__global__ void __launch_bounds__(kBWarps * 32)
-pool_bwd_dx(const T* __restrict__ x, const float* __restrict__ ln_scale,
-            const __nv_bfloat16* __restrict__ w_kv, const __nv_bfloat16* __restrict__ dkv,
-            const float* __restrict__ mu, const float* __restrict__ rstd, T* __restrict__ dx,
-            float* __restrict__ part, long long n_rows) {
-  constexpr int CW = E / kBWarps;
-  constexpr int NT = CW / 8;
-  constexpr int ALD = kBKC + kPad;
-  constexpr int WLD = E + kPad;
-  constexpr int ASTAGE = kRows * ALD;
-  constexpr int WSTAGE = kBKC * WLD;
-  constexpr int THREADS = kBWarps * 32;
-  static_assert(NT % 2 == 0, "ldmatrix.x4 feeds two n-tiles at a time");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [2][kRows][ALD]
-  __nv_bfloat16* Ws = As + 2 * ASTAGE;                             // [2][kBKC][WLD]
-  float* red = reinterpret_cast<float*>(Ws + 2 * WSTAGE);          // [2][kBWarps][kRows]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int lm_mat = lane >> 3, lm_row = lane & 7;
-  const long long tile_row0 = static_cast<long long>(blockIdx.x) * kRows;
-  const long long E2 = 2LL * E;
-
-  auto load_stage = [&](int chunk, int stage) {
-    const int kc = chunk * kBKC;
-    // [dk, dv] rows (past the last row: the last row again, masked below)
-    for (int idx = tid; idx < kRows * (kBKC / 8); idx += THREADS) {
-      const int r = idx / (kBKC / 8);
-      const int c = (idx % (kBKC / 8)) * 8;
-      long long row = tile_row0 + r;
-      if (row >= n_rows) row = n_rows - 1;
-      cp_async_16(&As[stage * ASTAGE + r * ALD + c], dkv + row * E2 + kc + c);
-    }
-    for (int idx = tid; idx < kBKC * (E / 8); idx += THREADS) {
-      const int kk = idx / (E / 8);
-      const int c = (idx % (E / 8)) * 8;
-      cp_async_16(&Ws[stage * WSTAGE + kk * WLD + c],
-                  w_kv + static_cast<long long>(kc + kk) * E + c);
-    }
-    cp_async_commit();
-  };
-
-  float acc[kRG][NT][4];
-#pragma unroll
-  for (int rg = 0; rg < kRG; ++rg)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) acc[rg][nt][0] = acc[rg][nt][1] = acc[rg][nt][2] = acc[rg][nt][3] = 0.f;
-
-  const int n_chunks = 2 * E / kBKC;
-  load_stage(0, 0);
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    const int stage = chunk & 1;
-    if (chunk + 1 < n_chunks) {
-      load_stage(chunk + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* as = As + stage * ASTAGE;
-    const __nv_bfloat16* ws = Ws + stage * WSTAGE + warp * CW;
-#pragma unroll
-    for (int ks = 0; ks < kBKC / 16; ++ks) {
-      uint32_t a[kRG][4];
-#pragma unroll
-      for (int rg = 0; rg < kRG; ++rg) {
-        ldmatrix_x4(a[rg], &as[(rg * 16 + (lm_mat & 1) * 8 + lm_row) * ALD + ks * 16 +
-                               (lm_mat >> 1) * 8]);
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        // B[k][n] = W_kv[kc + k][col]: rows are k, so transposed fragments
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, &ws[(ks * 16 + (lm_mat & 1) * 8 + lm_row) * WLD + np * 16 +
-                                   (lm_mat >> 1) * 8]);
-#pragma unroll
-        for (int rg = 0; rg < kRG; ++rg) {
-          mma_bf16_16816(acc[rg][2 * np], a[rg], bfr[0], bfr[1]);
-          mma_bf16_16816(acc[rg][2 * np + 1], a[rg], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // ---- LayerNorm backward.  acc[rg][nt] holds dy of rows rg*16 + g (0, 1)
-  // and rg*16 + g + 8 (2, 3), columns warp*CW + nt*8 + 2t, +1.
-  float mu_r[kRG][2], rs_r[kRG][2], s1[kRG][2], s2[kRG][2];
-  bool ok[kRG][2];
-#pragma unroll
-  for (int rg = 0; rg < kRG; ++rg) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const long long row = tile_row0 + rg * 16 + hi * 8 + g;
-      ok[rg][hi] = row < n_rows;
-      mu_r[rg][hi] = ok[rg][hi] ? mu[row] : 0.f;
-      rs_r[rg][hi] = ok[rg][hi] ? rstd[row] : 0.f;
-      s1[rg][hi] = s2[rg][hi] = 0.f;
-      if (!ok[rg][hi]) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) acc[rg][nt][2 * hi] = acc[rg][nt][2 * hi + 1] = 0.f;
-      }
-    }
-  }
-  float* part_row = part + static_cast<long long>(blockIdx.x) * 3 * E;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = warp * CW + nt * 8 + 2 * t;
-    const float sc0 = ln_scale[c], sc1 = ln_scale[c + 1];
-    float ds0 = 0.f, ds1 = 0.f, db0 = 0.f, db1 = 0.f;
-#pragma unroll
-    for (int rg = 0; rg < kRG; ++rg) {
-#pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        if (!ok[rg][hi]) continue;
-        const long long row = tile_row0 + rg * 16 + hi * 8 + g;
-        const float2 xv = load2(x + row * E + c);
-        const float xh0 = (xv.x - mu_r[rg][hi]) * rs_r[rg][hi];
-        const float xh1 = (xv.y - mu_r[rg][hi]) * rs_r[rg][hi];
-        const float dy0 = acc[rg][nt][2 * hi], dy1 = acc[rg][nt][2 * hi + 1];
-        ds0 += dy0 * xh0;
-        ds1 += dy1 * xh1;
-        db0 += dy0;
-        db1 += dy1;
-        s1[rg][hi] += dy0 * sc0 + dy1 * sc1;
-        s2[rg][hi] += dy0 * sc0 * xh0 + dy1 * sc1 * xh1;
-      }
-    }
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      ds0 += __shfl_xor_sync(0xffffffffu, ds0, off);
-      ds1 += __shfl_xor_sync(0xffffffffu, ds1, off);
-      db0 += __shfl_xor_sync(0xffffffffu, db0, off);
-      db1 += __shfl_xor_sync(0xffffffffu, db1, off);
-    }
-    if (g == 0) {
-      part_row[E + c] = ds0;
-      part_row[E + c + 1] = ds1;
-      part_row[2 * E + c] = db0;
-      part_row[2 * E + c + 1] = db1;
-    }
-  }
-  if (dx == nullptr) return;
-  // row sums: over the 4 lanes of a row, then over the 8 warps in order
-#pragma unroll
-  for (int rg = 0; rg < kRG; ++rg) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        s1[rg][hi] += __shfl_xor_sync(0xffffffffu, s1[rg][hi], off);
-        s2[rg][hi] += __shfl_xor_sync(0xffffffffu, s2[rg][hi], off);
-      }
-      if (t == 0) {
-        red[warp * kRows + rg * 16 + hi * 8 + g] = s1[rg][hi];
-        red[(kBWarps + warp) * kRows + rg * 16 + hi * 8 + g] = s2[rg][hi];
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int rg = 0; rg < kRG; ++rg) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      if (!ok[rg][hi]) continue;
-      const int r = rg * 16 + hi * 8 + g;
-      float tot1 = 0.f, tot2 = 0.f;
-#pragma unroll
-      for (int w = 0; w < kBWarps; ++w) {
-        tot1 += red[w * kRows + r];
-        tot2 += red[(kBWarps + w) * kRows + r];
-      }
-      const float mean1 = tot1 / E, mean2 = tot2 / E;
-      const long long row = tile_row0 + r;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = warp * CW + nt * 8 + 2 * t;
-        const float2 xv = load2(x + row * E + c);
-        const float xh0 = (xv.x - mu_r[rg][hi]) * rs_r[rg][hi];
-        const float xh1 = (xv.y - mu_r[rg][hi]) * rs_r[rg][hi];
-        const float dxh0 = acc[rg][nt][2 * hi] * ln_scale[c];
-        const float dxh1 = acc[rg][nt][2 * hi + 1] * ln_scale[c + 1];
-        store2(dx + row * E + c, rs_r[rg][hi] * (dxh0 - mean1 - xh0 * mean2),
-               rs_r[rg][hi] * (dxh1 - mean1 - xh1 * mean2));
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------- kernel C
-// d_w_kv[f, e] = sum over rows n of dkv[n, f] * y[n, e], rows [begin, end) of
-// one slice.  Block: output tile f in [m0, m0 + 128), e in [n0, n0 + 128);
-// 8 warps as 4 (f) x 2 (e), each [32 x 64].
+// One block per run of positions; a step is kDC dates of one position.
+// Iteration s: xhat and y of step s from its statistics; the partials of its
+// logits and da, of the LayerNorm sums of step s + 1 and, on a position's
+// first step, of the pivot T; one barrier, after which every warp finalizes
+// a and dlogit of step s and the statistics of step s + 1 itself; dy and the
+// accumulations; with dx, the LayerNorm backward sums, a second barrier and
+// dx.
 template <typename T>
-__global__ void __launch_bounds__(256)
-pool_bwd_dw(const T* __restrict__ x, const float* __restrict__ ln_scale,
-            const float* __restrict__ ln_bias, const __nv_bfloat16* __restrict__ dkv,
-            const float* __restrict__ mu, const float* __restrict__ rstd,
-            float* __restrict__ dw_part, long long n_rows, int E, long long rows_per_split) {
-  constexpr int LD = kCT + kPad;
-  __shared__ __align__(16) __nv_bfloat16 As[2][kCK][LD];  // [dk, dv] chunk: [row][f]
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kCK][LD];  // y chunk: [row][e]
+__global__ void __launch_bounds__(pool::kMaxThreads<kCols>)
+pool_bwd_rows(const T* __restrict__ x, const float* __restrict__ ln_scale,
+              const float* __restrict__ ln_bias, const float* __restrict__ u,
+              const T* __restrict__ out, const T* __restrict__ g, const float* __restrict__ m,
+              const float* __restrict__ den, const float* __restrict__ dybar, T* __restrict__ dx,
+              bf16* __restrict__ ybar, float* __restrict__ part, long long n_pos, int D, int L,
+              int E, int H, int dh, float eps, float sm_scale, long long per_block) {
+  extern __shared__ __align__(16) float smem[];
+  // [kMaxHeads][E] each; a thread reads and writes only its own columns
+  float* sU = smem;
+  float* sDY = sU + kMaxHeads * E;        // this position's dybar
+  float* sYB = sDY + kMaxHeads * E;       // this position's ybar
+  float* sDU = sYB + kMaxHeads * E;       // the block's du
+  // partial totals by step parity: LayerNorm sums [2][warps][kV12], the rest [2][warps][kVR]
+  double* red_ln = reinterpret_cast<double*>(sDU + kMaxHeads * E);
+  float* red = reinterpret_cast<float*>(red_ln + 2 * kWarps * kV12);
+  float* red4 = red + 2 * kWarps * kVR;   // [warps][kV4]
+  float* wf = red4 + kWarps * kV4;        // [warps][kWF]
+  const pool::XStages<T, kCols> xs{reinterpret_cast<T*>(smem + bwd_rows_floats(E))};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int lm_mat = lane >> 3, lm_row = lane & 7;
-  const int wm = warp % 4, wn = warp / 4;
-  const int n0 = blockIdx.x * kCT;  // e
-  const int m0 = blockIdx.y * kCT;  // f
-  const long long begin = static_cast<long long>(blockIdx.z) * rows_per_split;
-  const long long end = begin + rows_per_split < n_rows ? begin + rows_per_split : n_rows;
-  const long long E2 = 2LL * E;
-
-  auto load_stage = [&](long long k0, int stage) {
-    for (int idx = tid; idx < kCK * (kCT / 8); idx += 256) {
-      const int kk = idx / (kCT / 8);
-      const int c = (idx % (kCT / 8)) * 8;
-      const long long row = k0 + kk;
-      __nv_bfloat16* dst = &As[stage][kk][c];
-      if (row < end) {
-        cp_async_16(dst, dkv + row * E2 + m0 + c);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-    cp_async_commit();
-    for (int idx = tid; idx < kCK * (kCT / 8); idx += 256) {
-      const int kk = idx / (kCT / 8);
-      const int c = (idx % (kCT / 8)) * 8;
-      const long long row = k0 + kk;
-      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-      if (row < end) {
-        float v[8], sc[8], bi[8];
-        load8(x + row * E + n0 + c, v);
-        load8(ln_scale + n0 + c, sc);
-        load8(ln_bias + n0 + c, bi);
-        const float mr = mu[row], rs = rstd[row];
-        uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int warps = blockDim.x >> 5;
+  const int c0 = tid * kCols;
+  const bool active = c0 < E;
+  const int head_c = c0 / dh;  // the head of this thread's columns (dh is a multiple of kCols)
+  const float inv_e = 1.f / static_cast<float>(E);  // the LayerNorm backward's means
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  wf += warp * kWF;
+  float gam[kCols] = {}, bet[kCols] = {};
+  if (active) {
+    pool::loadN<kCols>(ln_scale + c0, gam);
+    pool::loadN<kCols>(ln_bias + c0, bet);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          pw[j] = pack_bf16((v[2 * j] - mr) * rs * sc[2 * j] + bi[2 * j],
-                            (v[2 * j + 1] - mr) * rs * sc[2 * j + 1] + bi[2 * j + 1]);
+    for (int i = 0; i < kMaxHeads * kCols; i += 4) {
+      const int o = (i / kCols) * E + c0 + i % kCols;
+      *reinterpret_cast<float4*>(sU + o) = *reinterpret_cast<const float4*>(u + o);
+      *reinterpret_cast<float4*>(sDY + o) = zero4;
+      *reinterpret_cast<float4*>(sDU + o) = zero4;
+    }
+  }
+  float dsc[kCols] = {}, dbi[kCols] = {};
+
+  const long long date_step = static_cast<long long>(L) * E;
+  const long long p_begin = blockIdx.x * per_block;
+  const long long p_end = min(n_pos, p_begin + per_block);
+  const int steps_per_pos = (D + kDC - 1) / kDC;
+  const long long n_steps = (p_end - p_begin) * steps_per_pos;
+  // x of step s lands in stage s % 2, copied a step ahead; `ahead` is two steps on
+  pool::Cursor at(p_begin, L), ahead(p_begin, L);
+  for (int s = 0; s < kStages; ++s) {
+    if (s < n_steps) xs.issue(x, ahead, s, D, L, E, c0, active);
+    mma::cp_async_commit();
+    ahead.advance(D, L);
+  }
+  mma::cp_async_wait<0>();
+  {  // step 0's statistics, through the parity-1 partials (step 0 writes parity 0)
+    double part12[kV12];
+    pool::ln_partials(xs, 0, E, c0, active, part12);
+    double* r1 = red_ln + kWarps * kV12;
+    pool::warp_totals<kV12>(part12, r1 + warp * kV12, lane);
+    __syncthreads();
+    pool::ln_finalize<kWarps>(r1, kV12, warps, lane, E, eps, wf + kFMu, wf + kFRstd);
+    __syncwarp();
+  }
+  // lane (r, h) of every warp: head h's softmax statistics and pivot at this position
+  float m_h = 0.f, den_h = 1.f, t_h = 0.f;
+
+  for (long long step = 0; step < n_steps; ++step) {
+    const long long pos = at.b * L + at.l;
+    const long long base = at.row(0, D, L, E);  // date d at base + d * date_step
+    const int d0 = at.d0;
+    const int stage = static_cast<int>(step & 1);
+    const int hl = lane % kMaxHeads, rl = lane / kMaxHeads;
+
+    // ---- a new position: T's partial, its dybar, ybar = 0, m and den of head hl
+    float tp[kMaxHeads];
+#pragma unroll
+    for (int h = 0; h < kMaxHeads; ++h) tp[h] = 0.f;
+    if (d0 == 0) {
+      if (active) {
+        float gv[kCols], ov[kCols];
+        pool::loadN<kCols>(g + pos * E + c0, gv);
+        pool::loadN<kCols>(out + pos * E + c0, ov);
+        float t = 0.f;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) t += gv[j] * ov[j];
+#pragma unroll
+        for (int h = 0; h < kMaxHeads; ++h) {
+          if (h == head_c) tp[h] = t;
+        }
+#pragma unroll
+        for (int i = 0; i < kMaxHeads * kCols; i += 4) {
+          const int h = i / kCols, o = h * E + c0 + i % kCols;
+          if (h < H) {
+            *reinterpret_cast<float4*>(sDY + o) =
+                *reinterpret_cast<const float4*>(dybar + pos * H * E + o);
+            *reinterpret_cast<float4*>(sYB + o) = zero4;
+          }
         }
       }
-      *reinterpret_cast<uint4*>(&Bs[stage][kk][c]) = packed;
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
-
-  const long long n_chunks = end > begin ? (end - begin + kCK - 1) / kCK : 0;
-  if (n_chunks > 0) load_stage(begin, 0);
-  for (long long chunk = 0; chunk < n_chunks; ++chunk) {
-    const int stage = static_cast<int>(chunk & 1);
-    if (chunk + 1 < n_chunks) {
-      load_stage(begin + (chunk + 1) * kCK, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kCK / 16; ++ks) {
-      // A[m = f][k = row] = As[row][f]: rows of As are k, so transposed fragments
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        ldmatrix_x4_trans(a[mt], &As[stage][ks * 16 + (lm_mat >> 1) * 8 + lm_row]
-                                    [wm * 32 + mt * 16 + (lm_mat & 1) * 8]);
+      if (hl < H) {
+        m_h = m[pos * H + hl];
+        den_h = den[pos * H + hl];
       }
+    }
+    mma::cp_async_wait<0>();  // this thread's copies of steps s and s + 1 have landed
+
+    // ---- xhat and y of this step; then its stage takes step s + 2
+    float xh[kDC][kCols], y[kDC][kCols];
 #pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, &Bs[stage][ks * 16 + (lm_mat & 1) * 8 + lm_row]
-                                  [wn * 64 + np * 16 + (lm_mat >> 1) * 8]);
+    for (int r = 0; r < kDC; ++r) {
+      float xv[kCols] = {};
+      if (active) xs.get(stage, r, E, c0, xv);
+      const float mu = wf[kFMu + r], rs = wf[kFRstd + r];
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16_16816(acc[mt][2 * np], a[mt], bfr[0], bfr[1]);
-          mma_bf16_16816(acc[mt][2 * np + 1], a[mt], bfr[2], bfr[3]);
+      for (int j = 0; j < kCols; ++j) {
+        xh[r][j] = active ? pool::ln_xhat(xv[j], mu, rs) : 0.f;
+        y[r][j] = active ? pool::round_as<T>(pool::ln_y(xh[r][j], gam[j], bet[j])) : 0.f;
+      }
+    }
+    float rstd[kDC];
+#pragma unroll
+    for (int r = 0; r < kDC; ++r) rstd[r] = wf[kFRstd + r];
+    if (step + 2 < n_steps) xs.issue(x, ahead, stage, D, L, E, c0, active);
+    mma::cp_async_commit();
+    ahead.advance(D, L);
+    at.advance(D, L);
+
+    // ---- partials: logits y . u_h and da = y . dybar_h, the next step's
+    // LayerNorm sums, T
+    float* red_s = red + stage * kWarps * kVR;
+    double* red_ln_s = red_ln + stage * kWarps * kV12;
+    {
+      float pr[2 * kVL];
+#pragma unroll
+      for (int h = 0; h < kMaxHeads; ++h) {
+        float uh[kCols] = {}, dyh[kCols] = {};
+        if (active) {
+          pool::loadN<kCols>(sU + h * E + c0, uh);
+          pool::loadN<kCols>(sDY + h * E + c0, dyh);
+        }
+#pragma unroll
+        for (int r = 0; r < kDC; ++r) {
+          float lu = 0.f, ld = 0.f;
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            lu += y[r][j] * uh[j];
+            ld += y[r][j] * dyh[j];
+          }
+          pr[r * kMaxHeads + h] = lu;
+          pr[kVL + r * kMaxHeads + h] = ld;
+        }
+      }
+      pool::warp_totals<2 * kVL>(pr, red_s + warp * kVR, lane);
+    }
+    {
+      double part12[kV12];
+      pool::ln_partials(xs, stage ^ 1, E, c0, active, part12);
+      pool::warp_totals<kV12>(part12, red_ln_s + warp * kV12, lane);
+    }
+    if (d0 == 0) pool::warp_totals<kMaxHeads>(tp, red_s + warp * kVR + 2 * kVL, lane);
+    __syncthreads();
+
+    // ---- every warp: a and dlogit of lane (r, h) = (rl, hl) ...
+    {
+      if (d0 == 0) t_h = pool::block_total<kWarps>(red_s, kVR, 2 * kVL + hl, warps);
+      const float lgt = sm_scale * pool::block_total<kWarps>(red_s, kVR, lane, warps);
+      const float da = pool::block_total<kWarps>(red_s, kVR, kVL + lane, warps);
+      const bool valid = hl < H && d0 + rl < D;
+      const float a = valid ? expf(lgt - m_h) / den_h : 0.f;
+      wf[kFA + hl * kDC + rl] = a;
+      wf[kFDl + hl * kDC + rl] = valid ? a * (da - t_h) : 0.f;
+    }
+    // ... and the next step's statistics (xhat and y of this step have read this step's)
+    pool::ln_finalize<kWarps>(red_ln_s, kV12, warps, lane, E, eps, wf + kFMu, wf + kFRstd);
+    __syncwarp();
+
+    // ---- dy; du, ybar, d_ln_scale and d_ln_bias accumulate
+    float dy[kDC][kCols];
+#pragma unroll
+    for (int r = 0; r < kDC; ++r) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) dy[r][j] = 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < kMaxHeads; ++h) {
+      if (h < H && active) {
+        float uh[kCols], dyh[kCols], duh[kCols], ybh[kCols];
+        pool::loadN<kCols>(sU + h * E + c0, uh);
+        pool::loadN<kCols>(sDY + h * E + c0, dyh);
+        pool::loadN<kCols>(sDU + h * E + c0, duh);
+        pool::loadN<kCols>(sYB + h * E + c0, ybh);
+        const float4 a4 = *reinterpret_cast<const float4*>(wf + kFA + h * kDC);
+        const float4 l4 = *reinterpret_cast<const float4*>(wf + kFDl + h * kDC);
+        const float av[kDC] = {a4.x, a4.y, a4.z, a4.w};
+        const float sdl[kDC] = {sm_scale * l4.x, sm_scale * l4.y, sm_scale * l4.z, sm_scale * l4.w};
+#pragma unroll
+        for (int r = 0; r < kDC; ++r) {
+#pragma unroll
+          for (int j = 0; j < kCols; ++j) {
+            dy[r][j] += av[r] * dyh[j] + sdl[r] * uh[j];
+            duh[j] += sdl[r] * y[r][j];
+            ybh[j] += av[r] * y[r][j];
+          }
+        }
+        pool::storeN<kCols>(sDU + h * E + c0, duh);
+        pool::storeN<kCols>(sYB + h * E + c0, ybh);
+      }
+    }
+    // rows past D have a = dlogit = 0, so dy = 0 there
+#pragma unroll
+    for (int r = 0; r < kDC; ++r) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        dsc[j] += dy[r][j] * xh[r][j];
+        dbi[j] += dy[r][j];
+      }
+    }
+
+    // ---- LayerNorm backward: dx = rstd (dy*gam - mean(dy*gam) - xhat mean(dy*gam*xhat))
+    if (dx != nullptr) {
+      float part4[kV4];
+#pragma unroll
+      for (int r = 0; r < kDC; ++r) {
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          dy[r][j] *= gam[j];  // dy * gam from here on
+          s1 += dy[r][j];
+          s2 += dy[r][j] * xh[r][j];
+        }
+        part4[r] = s1;
+        part4[kDC + r] = s2;
+      }
+      pool::warp_totals<kV4>(part4, red4 + warp * kV4, lane);
+      __syncthreads();
+      if (lane < kV4) wf[kFC1 + lane] = pool::block_total<kWarps>(red4, kV4, lane, warps) * inv_e;
+      __syncwarp();
+      if (active) {
+#pragma unroll
+        for (int r = 0; r < kDC; ++r) {
+          if (d0 + r < D) {
+            const float c1 = wf[kFC1 + r], c2 = wf[kFC2 + r];
+            float o[kCols];
+#pragma unroll
+            for (int j = 0; j < kCols; ++j) o[j] = rstd[r] * (dy[r][j] - c1 - xh[r][j] * c2);
+            pool::storeN<kCols>(dx + base + (d0 + r) * date_step + c0, o);
+          }
         }
       }
     }
-    __syncthreads();
+
+    if (d0 + kDC >= D && active) {  // the position's last step: its ybar
+#pragma unroll
+      for (int h = 0; h < kMaxHeads; ++h) {
+        if (h < H) {
+          float ybh[kCols];
+          pool::loadN<kCols>(sYB + h * E + c0, ybh);
+          pool::storeN<kCols>(ybar + (pos * H + h) * E + c0, ybh);
+        }
+      }
+    }
   }
 
-  float* dst = dw_part + static_cast<long long>(blockIdx.z) * E2 * E;
+  // the block's partial: du [H][E] | d_ln_scale [E] | d_ln_bias [E]
+  if (active) {
+    float* dst = part + static_cast<long long>(blockIdx.x) * (H + 2) * E;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const long long f = m0 + wm * 32 + mt * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int e = n0 + wn * 64 + nt * 8 + 2 * t;
-      store2(dst + f * E + e, acc[mt][nt][0], acc[mt][nt][1]);
-      store2(dst + (f + 8) * E + e, acc[mt][nt][2], acc[mt][nt][3]);
+    for (int h = 0; h < kMaxHeads; ++h) {
+      if (h < H) {
+        float duh[kCols];
+        pool::loadN<kCols>(sDU + h * E + c0, duh);
+        pool::storeN<kCols>(dst + h * E + c0, duh);
+      }
     }
+    pool::storeN<kCols>(dst + H * E + c0, dsc);
+    pool::storeN<kCols>(dst + (H + 1) * E + c0, dbi);
   }
 }
 
-// ---------------------------------------------------------------- D, E
 // out[c] = sum over r of part[r][c], in a fixed order: lane row y sums rows
 // y, y + blockDim.y, ...; then row 0 of the block adds the lanes in order.
 __global__ void column_sums(const float* __restrict__ part, long long rows, long long cols,
@@ -743,146 +396,236 @@ __global__ void column_sums(const float* __restrict__ part, long long rows, long
   }
 }
 
-int launch_column_sums(const float* part, long long rows, long long cols, float* out,
-                       int lanes_x, int lanes_y, cudaStream_t stream) {
-  const dim3 block(lanes_x, lanes_y);
-  const dim3 grid(static_cast<unsigned>((cols + lanes_x - 1) / lanes_x));
-  column_sums<<<grid, block, sizeof(float) * lanes_x * lanes_y, stream>>>(part, rows, cols, out);
-  return static_cast<int>(cudaGetLastError());
+// One block a row j of d_w_kv [2E, E].  j < E: dW_k[j] = q_j du_h(j) and
+// d_query[j] = W_k[j] . du_h(j) (a fixed-order block sum); j >= E: dW_v[j - E]
+// as the in-order sum of the `splits` slices of launch 4.
+constexpr int kFinishThreads = 256;
+
+__global__ void __launch_bounds__(kFinishThreads)
+pool_bwd_finish(const bf16* __restrict__ w_kv, const float* __restrict__ query,
+                const float* __restrict__ du, const float* __restrict__ dwv_part, int splits,
+                float* __restrict__ d_w, float* __restrict__ d_query, int E, int dh) {
+  __shared__ float red_w[kFinishThreads / 32];
+  const int j = blockIdx.x, tid = threadIdx.x;
+  float* dst = d_w + static_cast<long long>(j) * E;
+  if (j < E) {
+    const float q = query[j];
+    const float* duh = du + static_cast<long long>(j / dh) * E;
+    const bf16* wk = w_kv + static_cast<long long>(j) * E;
+    float dot = 0.f;
+    for (int e = tid; e < E; e += kFinishThreads) {
+      const float v = duh[e];
+      dst[e] = q * v;
+      dot += __bfloat162float(wk[e]) * v;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if ((tid & 31) == 0) red_w[tid >> 5] = dot;
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < kFinishThreads / 32; ++w) s += red_w[w];
+      d_query[j] = s;
+    }
+  } else {
+    const long long row = j - E;
+    for (int e = tid; e < E; e += kFinishThreads) {
+      float s = 0.f;
+      for (int sp = 0; sp < splits; ++sp) {
+        s += dwv_part[(sp * static_cast<long long>(E) + row) * E + e];
+      }
+      dst[e] = s;
+    }
+  }
 }
 
 struct BwdArgs {
   const void* x;
   const float* ln_scale;
   const float* ln_bias;
-  const __nv_bfloat16* w_kv;
+  const bf16* w_kv;
   const float* query;
   const void* out;
   const void* g;
+  const bf16* g16;
   const float* m;
   const float* den;
   void* dx;
-  __nv_bfloat16* dkv;
-  float* mu;
-  float* rstd;
-  float* part_small;
-  float* dw_part;
-  float* dw;
-  float* small_out;
+  float* u;
+  float* dybar;
+  bf16* ybar;
+  float* part;
+  float* small;
+  float* dwv_part;
+  float* d_w;
+  float* d_query;
   int B, D, L, E, H;
   float eps;
-  int splits;
   cudaStream_t stream;
 };
 
-template <typename T, int DH>
-int launch_dkv(const BwdArgs& a, long long n_rows) {
-  const size_t smem = dkv_smem_bytes<DH>(a.E);
-  auto kernel = pool_bwd_dkv<T, DH>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((n_rows + kRows - 1) / kRows), a.H);
-  kernel<<<grid, kRG * 64 * kColSplits<DH>, smem, a.stream>>>(
-      static_cast<const T*>(a.x), a.ln_scale, a.ln_bias, a.w_kv, a.query,
-      static_cast<const T*>(a.out), static_cast<const T*>(a.g), a.m, a.den, a.dkv,
-      a.part_small, a.mu, a.rstd, n_rows, a.D, a.L, a.E, a.H, a.eps,
-      1.0f / sqrtf(static_cast<float>(DH)));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int E>
-int launch_dx(const BwdArgs& a, long long n_rows) {
-  constexpr size_t smem = dx_smem_bytes<E>();
-  auto kernel = pool_bwd_dx<T, E>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((n_rows + kRows - 1) / kRows));
-  kernel<<<grid, kBWarps * 32, smem, a.stream>>>(
-      static_cast<const T*>(a.x), a.ln_scale, a.w_kv, a.dkv, a.mu, a.rstd,
-      static_cast<T*>(a.dx), a.part_small, n_rows);
-  return static_cast<int>(cudaGetLastError());
+// Row blocks of launch 3 and K slices of launch 4 at this shape.
+template <typename T>
+int plan(long long n_pos, int E, int H, pool::RowGrid* rows, int* splits) {
+  const int err = pool::row_grid(pool_bwd_rows<T>, n_pos, pool::row_threads(E, kCols),
+                                 bwd_rows_smem(E, sizeof(T)), rows);
+  if (err != 0) return err;
+  // dW_v output tiles; slices of at least 512 positions until about four
+  // blocks an SM are in flight
+  const int dh = E / H;
+  const long long tiles = static_cast<long long>((dh + pool::kBM - 1) / pool::kBM) *
+                          ((E + pool::kBN - 1) / pool::kBN) * H;
+  const long long want = (4LL * pool::sm_count() + tiles - 1) / tiles;
+  const long long most = (n_pos + 511) / 512;
+  *splits = static_cast<int>(want < most ? want : most);
+  if (*splits < 1) *splits = 1;
+  return 0;
 }
 
 template <typename T>
 int run(const BwdArgs& a) {
-  const long long n_rows = static_cast<long long>(a.B) * a.D * a.L;
-  int err;
-  switch (a.E / a.H) {
-    case 16: err = launch_dkv<T, 16>(a, n_rows); break;
-    case 48: err = launch_dkv<T, 48>(a, n_rows); break;
-    case 96: err = launch_dkv<T, 96>(a, n_rows); break;
-    case 128: err = launch_dkv<T, 128>(a, n_rows); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int dh = a.E / a.H;
+  const long long n_pos = static_cast<long long>(a.B) * a.L;
+  pool::RowGrid rows;
+  int splits = 1;
+  int err = plan<T>(n_pos, a.E, a.H, &rows, &splits);
   if (err != 0) return err;
-  switch (a.E) {
-    case 128: err = launch_dx<T, 128>(a, n_rows); break;
-    case 384: err = launch_dx<T, 384>(a, n_rows); break;
-    case 768: err = launch_dx<T, 768>(a, n_rows); break;
-    case 1024: err = launch_dx<T, 1024>(a, n_rows); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (err != 0) return err;
-  long long rows_per_split = (n_rows + a.splits - 1) / a.splits;
-  rows_per_split = (rows_per_split + kCK - 1) / kCK * kCK;
-  float* dw_dst = a.splits > 1 ? a.dw_part : a.dw;
-  const dim3 grid(a.E / kCT, 2 * a.E / kCT, a.splits);
-  pool_bwd_dw<T><<<grid, 256, 0, a.stream>>>(static_cast<const T*>(a.x), a.ln_scale,
-                                             a.ln_bias, a.dkv, a.mu, a.rstd, dw_dst, n_rows,
-                                             a.E, rows_per_split);
+
+  pool::pool_u<<<dim3((a.E + 127) / 128, kMaxHeads), 128, 0, a.stream>>>(a.w_kv, a.query, a.u,
+                                                                         a.E, a.H, dh);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  if (a.splits > 1) {
-    err = launch_column_sums(a.dw_part, a.splits, 2LL * a.E * a.E, a.dw, 256, 1, a.stream);
-    if (err != 0) return err;
-  }
-  const long long n_tiles = (n_rows + kRows - 1) / kRows;
-  return launch_column_sums(a.part_small, n_tiles, 3LL * a.E, a.small_out, 32, 32, a.stream);
+
+  const bf16* w_v = a.w_kv + static_cast<long long>(a.E) * a.E;
+  // dybar[p, h, e] = sum_c g[p, h*dh + c] * W_v[h*dh + c, e]
+  pool::MmaArgs mm{};
+  mm.a = a.g16;
+  mm.lda = a.E;
+  mm.a_head = dh;
+  mm.b = w_v;
+  mm.ldb = a.E;
+  mm.b_head = static_cast<long long>(dh) * a.E;
+  mm.c = a.dybar;
+  mm.ldc = static_cast<long long>(a.H) * a.E;
+  mm.c_head = a.E;
+  mm.c_split = 0;
+  mm.m = static_cast<int>(n_pos);
+  mm.n = a.E;
+  mm.k = dh;
+  mm.k_split = dh;
+  mm.splits = 1;
+  err = pool::launch_mma<false, true, float>(mm, a.H, a.stream);
+  if (err != 0) return err;
+
+  const int threads = pool::row_threads(a.E, kCols);
+  pool_bwd_rows<T><<<rows.blocks, threads, bwd_rows_smem(a.E, sizeof(T)), a.stream>>>(
+      static_cast<const T*>(a.x), a.ln_scale, a.ln_bias, a.u, static_cast<const T*>(a.out),
+      static_cast<const T*>(a.g), a.m, a.den, a.dybar, static_cast<T*>(a.dx), a.ybar, a.part,
+      n_pos, a.D, a.L, a.E, a.H, dh, a.eps, 1.0f / sqrtf(static_cast<float>(dh)), rows.per_block);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  // dW_v slices: part[s][h*dh + c, e] = sum_{p in slice s} g[p, h*dh + c] * ybar[p, h, e]
+  long long k_split = (n_pos + splits - 1) / splits;
+  k_split = (k_split + pool::kBK - 1) / pool::kBK * pool::kBK;
+  pool::MmaArgs dw{};
+  dw.a = a.g16;
+  dw.lda = a.E;
+  dw.a_head = dh;
+  dw.b = a.ybar;
+  dw.ldb = static_cast<long long>(a.H) * a.E;
+  dw.b_head = a.E;
+  dw.c = a.dwv_part;
+  dw.ldc = a.E;
+  dw.c_head = static_cast<long long>(dh) * a.E;
+  dw.c_split = static_cast<long long>(a.E) * a.E;
+  dw.m = dh;
+  dw.n = a.E;
+  dw.k = static_cast<int>(n_pos);
+  dw.k_split = static_cast<int>(k_split);
+  dw.splits = splits;
+  err = pool::launch_mma<true, true, float>(dw, a.H, a.stream);
+  if (err != 0) return err;
+
+  const long long cols = static_cast<long long>(a.H + 2) * a.E;
+  const dim3 block(32, 32);
+  const unsigned col_blocks = static_cast<unsigned>((cols + 31) / 32);
+  column_sums<<<col_blocks, block, sizeof(float) * 32 * 32, a.stream>>>(
+      a.part, rows.blocks, cols, a.small);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  pool_bwd_finish<<<2 * a.E, kFinishThreads, 0, a.stream>>>(a.w_kv, a.query, a.small, a.dwv_part,
+                                                            splits, a.d_w, a.d_query, a.E, dh);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The scratch the backward needs at this shape: out[0] = row blocks of
+// launch 3 (rows of `part`), out[1] = K slices of launch 4 (of `dwv_part`).
+extern "C" int attentive_pool_bwd_plan(long long n_pos, int E, int H, int dtype, int* out) {
+  if (!pool::supported_shape(E, H) || n_pos < 1) return static_cast<int>(cudaErrorInvalidValue);
+  pool::RowGrid rows;
+  int splits = 1;
+  int err;
+  if (dtype == 0) {
+    err = plan<bf16>(n_pos, E, H, &rows, &splits);
+  } else if (dtype == 1) {
+    err = plan<float>(n_pos, E, H, &rows, &splits);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  out[0] = rows.blocks;
+  out[1] = splits;
+  return err;
+}
+
+// Dynamic shared memory of pool_bwd_rows<bf16> at width E (for the build report).
+extern "C" int attentive_pool_bwd_smem_bytes(int E) {
+  return static_cast<int>(bwd_rows_smem(E, sizeof(bf16)));
+}
+
 // x [B, D, L, E], out and g [B, L, E] contiguous in one dtype (0 = bf16,
-// 1 = fp32); ln_scale, ln_bias, query fp32 [E]; w_kv bf16 [2E, E]; m, den fp32
-// [B, L, H].  dx (or null) like x.  Scratch: dkv bf16 [B*D*L, 2E]; mu, rstd fp32
-// [B*D*L]; part_small fp32 [ceil(B*D*L / 32), 3E]; dw_part fp32 [splits, 2E, E]
-// (unused when splits == 1).  Outputs: dw fp32 [2E, E]; small_out fp32 [3E] =
-// d_query | d_ln_scale | d_ln_bias.  Returns cudaGetLastError() after the last
-// launch that failed or the last one, or cudaErrorInvalidValue for a shape
-// this file does not build.
+// 1 = fp32); g16 the bf16 values of g (g itself for bf16); ln_scale, ln_bias,
+// query fp32 [E]; w_kv bf16 [2E, E]; m, den fp32 [B, L, H].  dx (or null)
+// like x.  Scratch: u fp32 [8, E]; dybar fp32 and ybar bf16 [B*L, H, E];
+// part fp32 [plan[0], (H + 2) * E]; small fp32 [(H + 2) * E] = du | d_ln_scale
+// | d_ln_bias; dwv_part fp32 [plan[1], E, E].  Outputs: d_w fp32 [2E, E],
+// d_query fp32 [E].  Returns cudaGetLastError() after the first launch that
+// failed or the last one, or cudaErrorInvalidValue for a shape this file
+// does not build.
 extern "C" int attentive_pool_bwd(const void* x, const void* ln_scale, const void* ln_bias,
                                   const void* w_kv, const void* query, const void* out,
-                                  const void* g, const void* m, const void* den, void* dx,
-                                  void* dkv, void* mu, void* rstd, void* part_small,
-                                  void* dw_part, void* dw, void* small_out, int B, int D,
-                                  int L, int E, int H, float eps, int splits, int dtype,
-                                  void* stream) {
-  if (H < 1 || E % H != 0 || E % kCT != 0 || E > kMaxE || B < 1 || D < 1 || L < 1 ||
-      splits < 1) {
+                                  const void* g, const void* g16, const void* m, const void* den,
+                                  void* dx, void* u, void* dybar, void* ybar, void* part,
+                                  void* small, void* dwv_part, void* d_w, void* d_query, int B,
+                                  int D, int L, int E, int H, float eps, int dtype, void* stream) {
+  if (!pool::supported_shape(E, H) || B < 1 || D < 1 || L < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const BwdArgs a{x,
                   static_cast<const float*>(ln_scale),
                   static_cast<const float*>(ln_bias),
-                  static_cast<const __nv_bfloat16*>(w_kv),
+                  static_cast<const bf16*>(w_kv),
                   static_cast<const float*>(query),
                   out,
                   g,
+                  static_cast<const bf16*>(g16),
                   static_cast<const float*>(m),
                   static_cast<const float*>(den),
                   dx,
-                  static_cast<__nv_bfloat16*>(dkv),
-                  static_cast<float*>(mu),
-                  static_cast<float*>(rstd),
-                  static_cast<float*>(part_small),
-                  static_cast<float*>(dw_part),
-                  static_cast<float*>(dw),
-                  static_cast<float*>(small_out),
-                  B, D, L, E, H, eps, splits,
+                  static_cast<float*>(u),
+                  static_cast<float*>(dybar),
+                  static_cast<bf16*>(ybar),
+                  static_cast<float*>(part),
+                  static_cast<float*>(small),
+                  static_cast<float*>(dwv_part),
+                  static_cast<float*>(d_w),
+                  static_cast<float*>(d_query),
+                  B, D, L, E, H, eps,
                   static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return run<__nv_bfloat16>(a);
+  if (dtype == 0) return run<bf16>(a);
   if (dtype == 1) return run<float>(a);
   return static_cast<int>(cudaErrorInvalidValue);
 }

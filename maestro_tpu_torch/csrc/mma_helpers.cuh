@@ -1,5 +1,5 @@
-// Warp-level tensor-core and copy helpers of the pool backward
-// (attn_pool_bwd.cu): mma.sync m16n8k16 bf16 with fp32 accumulators,
+// Warp-level tensor-core and copy helpers of the pool kernels
+// (pool_common.cuh): mma.sync m16n8k16 bf16 with fp32 accumulators,
 // ldmatrix, cp.async.
 //
 // Fragment layouts of mma.m16n8k16 (thread (g, t) = (lane / 4, lane % 4)):
@@ -45,9 +45,11 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(addr));
 }
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
+// 16 bytes, or 16 zero bytes when !valid (gmem is then not read)
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(gmem),
+               "r"(valid ? 16 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }

@@ -15,32 +15,32 @@ LayerNorm stays in ``AttentiveReduce``.  As there, the forward saves
 ``(x, out, m, den)`` and the backward takes the softmax pivot from the saved
 ``out``: no second sweep over the dates.
 
-What bounds the forward on an H100: operations.  The kv projection needs
-``4*B*D*L*E*E`` operations for ``B*D*L*E`` input elements — 2*E = 1536
-operations per byte of bf16 input at E = 768, far above the card's ~295.  The
-plain version is bound by bytes instead: it writes and re-reads LN(x)
-``[B, D, L, E]`` and kv ``[B, D, L, 2E]`` through device memory.  The design
-keeps both on chip: a block owns (row tile, one head), so its accumulator is
-``[rows, dh]`` fp32 in tensor-core fragments rather than the ``[rows, E]`` fp32
-tile plus ``[rows, 2E]`` kv tile the TPU kernel holds (which exceed an SM's
-shared memory at E = 768); the date loop and the online softmax run inside the
-block, x is read and out written once, and the per-head logit is a register dot
-product with a 4-thread shuffle in place of the TPU kernel's selector matmuls.
-Per 16-row group, k-warps multiply the k columns into partial logits and
-v-warps multiply the v columns and pool (two warps of each kind when dh is a
-multiple of 32); W_kv streams through a two-stage ``cp.async`` buffer.  A
-block has 32 rows, so that the serving path's 512 rows spread over the SMs.
-The backward's design is written in its source.
+What bounds it on an H100, and the design.  The TPU kernel forms the kv
+projection of every (batch, date, position) row, ``4*E*E`` operations a row
+forward and ``12*E*E`` backward, and so did this port's first kernels.  The
+function needs far less: with ``u_h = sum_{j in h} q_j W_k[j, :]`` the logit
+of head h is ``dh^-1/2 * y_d . u_h`` and the pooled output is ``W_v,h . ybar_h``
+with ``ybar_h = sum_d a_dh y_d``, so a row costs about ``4*E*H + 8*E`` fp32
+operations forward (``12*E*H + 21*E`` backward) and the ``E x E`` products
+remain once per position, on the tensor cores.  At ``[32, 26, 128, 768]`` that
+is 3.3 GFLOP of fp32 work plus 4.8 GFLOP of products forward, against 251 GFLOP
+by the JAX count, and reading x once (164 MB) takes about as long as the fp32
+work: the forward is bound by both at about 0.05 ms, the backward by its fp32
+work at about 0.15 ms.  The kernels (csrc/attn_pool.cu, csrc/attn_pool_bwd.cu,
+csrc/pool_common.cuh) read x once per call, one block over a run of positions
+and eight columns of E a thread; their sources give each launch.  They take at
+most 8 heads (``MAX_HEADS``), as every pool of the models has.
 
-Precision: LayerNorm statistics, logits, softmax and the pooled sum are fp32;
-the kv projection runs on the tensor cores with bf16 operands (LN(x) and
-``w_kv`` rounded to bf16) and fp32 accumulation.  For bf16 ``x`` this is what
-``attentive_pool_plain`` does too.  For fp32 ``x`` the plain version keeps
-fp32 operands, so kernel and plain version then differ by bf16 operand
-rounding (about 1e-2 relative); the serving and training paths run bf16.
-The backward's products take bf16 operands as well (``[dk, dv]`` rounded to
-bf16, as the JAX kernel rounds ``dkv`` to x's dtype); its parameter
-gradients are fp32 sums.
+Precision: logits, softmax, ``u``, ``ybar`` and the backward's ``dybar``,
+``du`` and every sum are fp32; the LayerNorm statistics are fp32 values of
+fp64 sums and y is formed in the plain version's order of fp32 operations,
+then rounded to x's dtype before the logits and ``ybar`` (as the plain version
+rounds LN(x) before the kv projection); ``w_kv`` is multiplied as bf16.
+``ybar`` and ``g`` are rounded to bf16 as operands of the tensor-core products
+(fp32 accumulation).  For fp32 ``x`` the plain version keeps fp32 operands, so
+kernel and plain version then differ by that rounding (about 1e-3 relative);
+the serving and training paths run bf16.  The parameter gradients are fp32
+sums in a fixed order: two calls on the same inputs give the same bits.
 """
 
 from __future__ import annotations
@@ -52,14 +52,13 @@ import torch
 # 8 heads at E = 128, 384 (small), 768 (medium, base), 1024 (large)
 SUPPORTED_HEAD_DIMS = (16, 48, 96, 128)
 MAX_EMBED_DIM = 1024
+MAX_HEADS = 8  # csrc/pool_common.cuh kMaxHeads
 
-launch_count = 0  # incremented once per forward kernel launch, nowhere else
-bwd_launch_count = 0  # once per backward call (its five launches), nowhere else
+launch_count = 0  # once per forward call (its three launches), nowhere else
+bwd_launch_count = 0  # once per backward call (its six launches), nowhere else
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-_fn = None
-_bwd_fn = None
-_ROW_TILE = 32  # csrc/attn_pool_bwd.cu kRows: rows of one partial-sum block
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def attentive_pool_plain(
@@ -112,8 +111,8 @@ def attentive_pool_bwd_plain(
     eps: float = 1e-5,
     need_dx: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the backward, step by step as the kernel
-    takes it: ``(dx or None, d_ln_scale, d_ln_bias, d_w_kv, d_query)``.
+    """Plain PyTorch version of the backward, step by step as the JAX
+    kernel takes it: ``(dx or None, d_ln_scale, d_ln_bias, d_w_kv, d_query)``.
 
     The softmax pivot ``T_h = sum_{e in h} g_e out_e`` comes from the saved
     ``out``; per date, LN and kv are recomputed, ``a = exp(logit - m) / den``,
@@ -159,38 +158,45 @@ def attentive_pool_bwd_plain(
     return dx, d_scale, d_bias, d_w_kv, d_query
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _lib(name: str) -> ctypes.CDLL:
+    """csrc/<name>.cu's library with its C functions' signatures set."""
+    lib = _libs.get(name)
+    if lib is None:
         from maestro_tpu_torch.ops.cuda_build import load_library
 
-        fn = load_library("attn_pool").attentive_pool_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 8  # x, ln_scale, ln_bias, w_kv, query, out, m, den
-            + [ctypes.c_int] * 5  # B, D, L, E, H
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # eps, dtype, stream
-        )
-        _fn = fn
-    return _fn
+        lib = load_library(name)
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == "attn_pool":
+            lib.attentive_pool_fwd.argtypes = (
+                # x, ln_scale, ln_bias, w_kv, query, u, ybar, out, m, den
+                [ptr] * 10 + [i32] * 5 + [f32, i32, ptr]  # B, D, L, E, H; eps, dtype, stream
+            )
+            lib.attentive_pool_fwd_smem_bytes.argtypes = [i32]
+        else:
+            lib.attentive_pool_bwd.argtypes = (
+                # x, ln_scale, ln_bias, w_kv, query, out, g, g16, m, den, dx,
+                # u, dybar, ybar, part, small, dwv_part, d_w, d_query
+                [ptr] * 19 + [i32] * 5 + [f32, i32, ptr]  # B, D, L, E, H; eps, dtype, stream
+            )
+            lib.attentive_pool_bwd_plan.argtypes = [ctypes.c_longlong, i32, i32, i32, ptr]
+            lib.attentive_pool_bwd_smem_bytes.argtypes = [i32]
+        _libs[name] = lib
+    return lib
 
 
-def _bwd_kernel():
-    global _bwd_fn
-    if _bwd_fn is None:
-        from maestro_tpu_torch.ops.cuda_build import load_library
+def _kernel() -> ctypes.CDLL:
+    return _lib("attn_pool")
 
-        fn = load_library("attn_pool_bwd").attentive_pool_bwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            # x, ln_scale, ln_bias, w_kv, query, out, g, m, den,
-            # dx, dkv, mu, rstd, part_small, dw_part, dw, small_out
-            [ctypes.c_void_p] * 17
-            + [ctypes.c_int] * 5  # B, D, L, E, H
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # eps, splits, dtype, stream
-        )
-        _bwd_fn = fn
-    return _bwd_fn
+
+def _bwd_kernel() -> ctypes.CDLL:
+    return _lib("attn_pool_bwd")
+
+
+def smem_bytes(e: int, backward: bool) -> int:
+    """Dynamic shared memory of the row kernel (forward or backward) at width E."""
+    if backward:
+        return _bwd_kernel().attentive_pool_bwd_smem_bytes(e)
+    return _kernel().attentive_pool_fwd_smem_bytes(e)
 
 
 def _check_params(x, ln_scale, ln_bias, w_kv, query, heads) -> None:
@@ -222,55 +228,50 @@ def _check_params(x, ln_scale, ln_bias, w_kv, query, heads) -> None:
         raise ValueError(msg)
 
 
-def _check_kernel_shape(e: int, heads: int, name: str, multiple: int) -> None:
+def _check_kernel_shape(e: int, heads: int, name: str) -> None:
     dh = e // heads
-    if dh not in SUPPORTED_HEAD_DIMS or e % multiple or e > MAX_EMBED_DIM:
+    if dh not in SUPPORTED_HEAD_DIMS or e % 64 or e > MAX_EMBED_DIM or heads > MAX_HEADS:
         msg = (
-            f"{name} is built for head dims {SUPPORTED_HEAD_DIMS} and "
-            f"E a multiple of {multiple} up to {MAX_EMBED_DIM}; got E={e}, heads={heads}"
+            f"{name} is built for head dims {SUPPORTED_HEAD_DIMS}, at most {MAX_HEADS} heads "
+            f"and E a multiple of 64 up to {MAX_EMBED_DIM}; got E={e}, heads={heads}"
         )
         raise ValueError(msg)
-    if heads > 65535:
-        msg = f"{heads} heads exceed the kernel's grid limit"
-        raise ValueError(msg)
+
+
+def _raise_on(err: int, name: str, x: torch.Tensor) -> None:
+    if err != 0:
+        msg = f"{name} launch failed with CUDA error {err} for x {tuple(x.shape)} {x.dtype}"
+        raise RuntimeError(msg)
+
+
+def _params32(ln_scale, ln_bias, query):
+    return tuple(t.detach().to(torch.float32).contiguous() for t in (ln_scale, ln_bias, query))
 
 
 def _fwd_kernel(x, ln_scale, ln_bias, w16, query, heads, eps):
-    """One launch of ``attentive_pool_fwd``: ``(out, m, den)``."""
+    """One call of ``attentive_pool_fwd`` (three launches): ``(out, m, den)``."""
     global launch_count
     b, d, l, e = x.shape
-    _check_kernel_shape(e, heads, "attentive_pool_fwd", 64)
+    _check_kernel_shape(e, heads, "attentive_pool_fwd")
+    dev = x.device
     x = x.contiguous()
-    scale32 = ln_scale.detach().to(torch.float32).contiguous()
-    bias32 = ln_bias.detach().to(torch.float32).contiguous()
-    query32 = query.detach().to(torch.float32).contiguous()
+    scale32, bias32, query32 = _params32(ln_scale, ln_bias, query)
     w16 = w16.detach().to(torch.bfloat16).contiguous()
-    out = torch.empty((b, l, e), dtype=x.dtype, device=x.device)
-    m = torch.empty((b, l, heads), dtype=torch.float32, device=x.device)
+    u = torch.empty((MAX_HEADS, e), dtype=torch.float32, device=dev)
+    ybar = torch.empty((b * l, heads, e), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, l, e), dtype=x.dtype, device=dev)
+    m = torch.empty((b, l, heads), dtype=torch.float32, device=dev)
     den = torch.empty_like(m)
-    with torch.cuda.device(x.device):
-        err = _kernel()(
+    with torch.cuda.device(dev):
+        err = _kernel().attentive_pool_fwd(
             x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), w16.data_ptr(),
-            query32.data_ptr(), out.data_ptr(), m.data_ptr(), den.data_ptr(),
-            b, d, l, e, heads, float(eps), _DTYPE_CODE[x.dtype],
+            query32.data_ptr(), u.data_ptr(), ybar.data_ptr(), out.data_ptr(), m.data_ptr(),
+            den.data_ptr(), b, d, l, e, heads, float(eps), _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        msg = (
-            f"attentive_pool_fwd launch failed with CUDA error {err} "
-            f"for x {tuple(x.shape)} {x.dtype}"
-        )
-        raise RuntimeError(msg)
+    _raise_on(err, "attentive_pool_fwd", x)
     launch_count += 1
     return out, m, den
-
-
-def bwd_splits(n_rows: int, e: int, sm_count: int) -> int:
-    """Row slices of the split-K ``d_w_kv`` product (csrc/attn_pool_bwd.cu):
-    enough [128 x 128] output tiles times slices for about 8 blocks per SM,
-    no slice under 1024 rows."""
-    tiles = (2 * e // 128) * (e // 128)
-    return max(1, min(-(-n_rows // 1024), -(-8 * sm_count // tiles)))
 
 
 def attentive_pool_bwd(
@@ -311,45 +312,44 @@ def attentive_pool_bwd(
     if x.device.type == "cpu":
         return attentive_pool_bwd_plain(x, ln_scale, ln_bias, w_kv, query, out, m, den, g,
                                         heads, eps, need_dx)
-    _check_kernel_shape(e, heads, "attentive_pool_bwd", 128)
+    _check_kernel_shape(e, heads, "attentive_pool_bwd")
     dev = x.device
     x = x.contiguous()
     out = out.to(x.dtype).contiguous()
     g = g.to(x.dtype).contiguous()
+    g16 = g if g.dtype == torch.bfloat16 else g.to(torch.bfloat16)  # tensor-core operand
     m, den = m.contiguous(), den.contiguous()
-    scale32 = ln_scale.detach().to(torch.float32).contiguous()
-    bias32 = ln_bias.detach().to(torch.float32).contiguous()
-    query32 = query.detach().to(torch.float32).contiguous()
+    scale32, bias32, query32 = _params32(ln_scale, ln_bias, query)
     w16 = w_kv.detach().to(torch.bfloat16).contiguous()
-    n_rows = b * d * l
-    n_tiles = -(-n_rows // _ROW_TILE)
-    splits = bwd_splits(n_rows, e, torch.cuda.get_device_properties(dev).multi_processor_count)
-    dx = torch.empty_like(x) if need_dx else None
-    dkv = torch.empty((n_rows, 2 * e), dtype=torch.bfloat16, device=dev)
-    stats = torch.empty((2, n_rows), dtype=torch.float32, device=dev)
-    part_small = torch.empty((n_tiles, 3 * e), dtype=torch.float32, device=dev)
-    d_w = torch.empty((2 * e, e), dtype=torch.float32, device=dev)
-    dw_part = torch.empty((splits, 2 * e, e), dtype=torch.float32, device=dev) \
-        if splits > 1 else d_w
-    small = torch.empty(3 * e, dtype=torch.float32, device=dev)  # d_query | d_scale | d_bias
+    n_pos = b * l
+    lib = _bwd_kernel()
+    plan = (ctypes.c_int * 2)()
     with torch.cuda.device(dev):
-        err = _bwd_kernel()(
+        _raise_on(lib.attentive_pool_bwd_plan(n_pos, e, heads, _DTYPE_CODE[x.dtype], plan),
+                  "attentive_pool_bwd (plan)", x)
+    row_blocks, splits = plan
+    dx = torch.empty_like(x) if need_dx else None
+    f32 = {"dtype": torch.float32, "device": dev}
+    u = torch.empty((MAX_HEADS, e), **f32)
+    dybar = torch.empty((n_pos, heads, e), **f32)
+    ybar = torch.empty((n_pos, heads, e), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((row_blocks, (heads + 2) * e), **f32)
+    small = torch.empty((heads + 2) * e, **f32)  # du | d_ln_scale | d_ln_bias
+    dwv_part = torch.empty((splits, e, e), **f32)
+    d_w = torch.empty((2 * e, e), **f32)
+    d_query = torch.empty(e, **f32)
+    with torch.cuda.device(dev):
+        err = lib.attentive_pool_bwd(
             x.data_ptr(), scale32.data_ptr(), bias32.data_ptr(), w16.data_ptr(),
-            query32.data_ptr(), out.data_ptr(), g.data_ptr(), m.data_ptr(), den.data_ptr(),
-            0 if dx is None else dx.data_ptr(), dkv.data_ptr(), stats[0].data_ptr(),
-            stats[1].data_ptr(), part_small.data_ptr(), dw_part.data_ptr(), d_w.data_ptr(),
-            small.data_ptr(), b, d, l, e, heads, float(eps), splits, _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            query32.data_ptr(), out.data_ptr(), g.data_ptr(), g16.data_ptr(), m.data_ptr(),
+            den.data_ptr(), 0 if dx is None else dx.data_ptr(), u.data_ptr(), dybar.data_ptr(),
+            ybar.data_ptr(), part.data_ptr(), small.data_ptr(), dwv_part.data_ptr(),
+            d_w.data_ptr(), d_query.data_ptr(), b, d, l, e, heads, float(eps),
+            _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        msg = (
-            f"attentive_pool_bwd launch failed with CUDA error {err} "
-            f"for x {tuple(x.shape)} {x.dtype}"
-        )
-        raise RuntimeError(msg)
+    _raise_on(err, "attentive_pool_bwd", x)
     bwd_launch_count += 1
-    d_query, d_scale, d_bias = small.split(e)
-    return dx, d_scale, d_bias, d_w, d_query
+    return dx, small[heads * e:(heads + 1) * e], small[(heads + 1) * e:], d_w, d_query
 
 
 class _AttentivePool(torch.autograd.Function):

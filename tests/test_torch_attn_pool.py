@@ -234,6 +234,117 @@ def test_cpu_backward_launches_no_kernel():
     args = _make(1, 2, 32, 128, seed=70)
     _port_backward(args, rng_normal(71, 1, 32, 128), 8)
     assert (TP.launch_count, TP.bwd_launch_count) == before
-    # the split-K slice count of the d_w_kv product at the finetune shape
-    assert TP.bwd_splits(32 * 26 * 128, 768, 132) == 15
-    assert TP.bwd_splits(100, 128, 132) == 1
+
+
+# ---------------------------------------------------------------- the kernels' algebra
+# The CUDA kernels (csrc/attn_pool.cu, attn_pool_bwd.cu) compute the pool in a
+# factored form: u_h = sum_{j in h} q_j W_k[j], logit = s y . u_h, ybar_h =
+# sum_d a y_d, out_h = W_v,h ybar_h; dybar_h = W_v,h^T g_h, T_h = g_h . out_h,
+# da = dybar_h . y, dlogit = a (da - T), dy = sum_h (a dybar_h + s dlogit u_h),
+# du_h = s sum dlogit y, dW_k[j] = q_j du_h(j), dW_v,h = sum g_h ybar_h,
+# d_query_j = W_k[j] . du_h(j).  The two functions below transcribe them
+# launch by launch in float64: the dates in steps of KERNEL_DATE_STEP with the
+# online softmax, LayerNorm statistics from a row's sum and sum of squares,
+# ybar recomputed in the backward.  They leave out only the bf16 roundings of
+# the operands, which chip_smoke.py checks on the card.
+KERNEL_DATE_STEP = 4  # csrc/pool_common.cuh kDC
+
+
+def _ln_step(xs, scale, bias, eps):
+    """LayerNorm of [P, c, E] rows as the row kernels take it: (xhat, y, rstd)."""
+    mu = xs.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xs.square().mean(-1, keepdim=True) - mu.square()).clamp_min(0) + eps)
+    xhat = (xs - mu) * rstd
+    return xhat, xhat * scale + bias, rstd
+
+
+def _factored_fwd(x, scale, bias, w_kv, query, heads, eps=1e-5):
+    b, d, l, e = x.shape
+    dh = e // heads
+    s = dh**-0.5
+    rows = x.permute(0, 2, 1, 3).reshape(b * l, d, e)  # [P, D, E]
+    w_k, w_v = w_kv[:e].reshape(heads, dh, e), w_kv[e:].reshape(heads, dh, e)
+    u = torch.einsum("hj,hje->he", query.reshape(heads, dh), w_k)  # launch 1
+    m = torch.full((b * l, heads), -1e30, dtype=x.dtype)  # launch 2
+    den = torch.zeros_like(m)
+    acc = torch.zeros((b * l, heads, e), dtype=x.dtype)
+    for d0 in range(0, d, KERNEL_DATE_STEP):
+        _, y, _ = _ln_step(rows[:, d0:d0 + KERNEL_DATE_STEP], scale, bias, eps)
+        logit = s * torch.einsum("pce,he->pch", y, u)
+        mx = torch.maximum(m, logit.amax(dim=1))
+        alpha = torch.exp(m - mx)
+        p = torch.exp(logit - mx[:, None])
+        den = den * alpha + p.sum(dim=1)
+        acc = acc * alpha[..., None] + torch.einsum("pch,pce->phe", p, y)
+        m = mx
+    ybar = acc / den[..., None]
+    out = torch.einsum("phe,hce->phc", ybar, w_v)  # launch 3
+    return out.reshape(b, l, e), m.reshape(b, l, heads), den.reshape(b, l, heads)
+
+
+def _factored_bwd(x, scale, bias, w_kv, query, out, m, den, g, heads, eps=1e-5, need_dx=True):
+    b, d, l, e = x.shape
+    dh = e // heads
+    s = dh**-0.5
+    rows = x.permute(0, 2, 1, 3).reshape(b * l, d, e)
+    w_k, w_v = w_kv[:e], w_kv[e:].reshape(heads, dh, e)
+    u = torch.einsum("hj,hje->he", query.reshape(heads, dh), w_k.reshape(heads, dh, e))
+    gh = g.reshape(b * l, heads, dh)
+    dybar = torch.einsum("phc,hce->phe", gh, w_v)  # launch 2
+    pivot = (gh * out.reshape(b * l, heads, dh)).sum(-1)  # launch 3 from here
+    m, den = m.reshape(b * l, 1, heads), den.reshape(b * l, 1, heads)
+    du = torch.zeros((heads, e), dtype=x.dtype)
+    ybar = torch.zeros((b * l, heads, e), dtype=x.dtype)
+    d_scale, d_bias = torch.zeros(e, dtype=x.dtype), torch.zeros(e, dtype=x.dtype)
+    dx = torch.zeros_like(rows)
+    for d0 in range(0, d, KERNEL_DATE_STEP):
+        xhat, y, rstd = _ln_step(rows[:, d0:d0 + KERNEL_DATE_STEP], scale, bias, eps)
+        a = torch.exp(s * torch.einsum("pce,he->pch", y, u) - m) / den
+        dlogit = a * (torch.einsum("pce,phe->pch", y, dybar) - pivot[:, None])
+        dy = torch.einsum("pch,phe->pce", a, dybar) + s * torch.einsum("pch,he->pce", dlogit, u)
+        du += s * torch.einsum("pch,pce->he", dlogit, y)
+        ybar += torch.einsum("pch,pce->phe", a, y)
+        d_scale += (dy * xhat).sum(dim=(0, 1))
+        d_bias += dy.sum(dim=(0, 1))
+        gd = dy * scale
+        dx[:, d0:d0 + KERNEL_DATE_STEP] = rstd * (
+            gd - gd.mean(-1, keepdim=True) - xhat * (gd * xhat).mean(-1, keepdim=True))
+    d_w_v = torch.einsum("phc,phe->hce", gh, ybar).reshape(e, e)  # launches 4, 6
+    du_rows = du.repeat_interleave(dh, dim=0)  # du of row j's head
+    d_w = torch.cat([query[:, None] * du_rows, d_w_v])
+    d_query = (w_k * du_rows).sum(-1)
+    dx = dx.reshape(b, l, d, e).permute(0, 2, 1, 3) if need_dx else None
+    return dx, d_scale, d_bias, d_w, d_query
+
+
+# (b, d, l, e, heads, dx wanted): head dims 16, 48, 96, 128; 2, 3 and 26
+# dates (26 leaves a short last step); ragged L
+FACTORED_CASES = [
+    (2, 2, 33, 128, 8, True),
+    (1, 26, 7, 384, 8, False),
+    (1, 26, 5, 768, 8, True),
+    (2, 3, 9, 1024, 8, False),
+    (1, 26, 3, 1024, 8, True),
+]
+
+
+@pytest.mark.parametrize(("b", "d", "l", "e", "heads", "need_dx"), FACTORED_CASES)
+def test_kernel_factored_form_matches_plain(b, d, l, e, heads, need_dx):
+    """The kernels' order of operations (float64) against the plain forward
+    and backward (fp32) on the same inputs."""
+    x, scale, bias, w_kv, query = (torch.from_numpy(np.ascontiguousarray(a))
+                                   for a in _make(b, d, l, e, seed=80))
+    args = (x, scale, bias, w_kv.T.contiguous(), query)
+    want_fwd = TP.attentive_pool_plain(*args, heads)
+    wide = [a.double() for a in args]
+    for name, got, want in zip(("out", "m", "den"), _factored_fwd(*wide, heads), want_fwd):
+        np.testing.assert_allclose(to_np(got), to_np(want), **FP32_TOL, err_msg=name)
+    out, m, den = want_fwd
+    g = torch.from_numpy(rng_normal(81, b, l, e))
+    want = TP.attentive_pool_bwd_plain(*args, out, m, den, g, heads, need_dx=need_dx)
+    got = _factored_bwd(*wide, out.double(), m.double(), den.double(), g.double(), heads,
+                        need_dx=need_dx)
+    assert (got[0] is None) == (not need_dx)
+    for name, gk, gw in zip(GRAD_NAMES, got, want):
+        if gw is not None:
+            np.testing.assert_allclose(to_np(gk), to_np(gw), **FP32_TOL, err_msg=name)
