@@ -22,13 +22,27 @@ parameters):
   through the kernels and through the plain versions from the same weights
   and masks, with launch counts per step; then timed steps at batch 48;
 * finetuning and probing — ``train.steps.make_supervised_step`` (the
-  ``cosia`` segmentation head, 15 classes, its date pool over 26 dates):
+  ``cosia`` segmentation head, 15 classes, its date pool over 26 dates, each
+  chunk of ref rows recomputed in the backward):
   three steps of each phase at batch 8 through the kernels and through the
   plain versions from the same weights, with launch counts per step and the
   step-1 gradients (all trained parameters, the pool's, the encoders') held
   against the plain path by cosine; then timed steps
   at the JAX bench's batches (finetune 32 with 4 ref rows a head chunk, probe
-  48 with 2), the EMA update and the batch-32 EMA eval step.
+  48 with 2), the EMA update and the batch-32 EMA eval step;
+* the pretrain eval step (``make_pretrain_eval_step``, pixel-space loss) at
+  batch 48, kernel path against plain path, timed;
+* ``skip_nonfinite`` finetune steps at batch 8: a step on a batch with a NaN
+  in one raster is dropped (parameters, moments, schedule count
+  bit-identical), the next good one applied, and the option adds no host
+  sync to a step (``torch.cuda.set_sync_debug_mode``);
+* finetune steps at batch 32 with ``remat="dots"`` and with none: step time,
+  peak memory, and the two held together by their first losses.
+
+The loss forward of a pretrain step is one grouped launch over the five
+modalities; it is also held against its plain version at the five FLAIR
+shapes, grouped, at batch 8 and 48, and two grouped calls must give the same
+bits.
 
 Output: one JSON object per line.  The second-to-last line is the
 ``{"kernels": [...]}`` record, the last line
@@ -138,9 +152,10 @@ POOL_REPEAT_CASES = (((8, 26, 128, 768), True), ((8, 26, 64, 768), False))
 REQUEST_BATCHES = (1, 4, 8)
 ATTN_PER_REQUEST = 39  # 4 streams x 9 blocks + 3 trunk blocks
 POOL_PER_REQUEST = 16  # ref grid 32 rows / seg_chunk_rows 2
-# per pretrain step: 4 x 9 encoder + 3 trunk + 4 x 3 decoder blocks; 5 modalities
+# per pretrain step: 4 x 9 encoder + 3 trunk + 4 x 3 decoder blocks; 5 modalities,
+# whose loss forward is one grouped launch and whose backward is one launch each
 ATTN_PER_STEP = 51
-LOSS_PER_STEP = 5
+LOSS_FWD_PER_STEP, LOSS_BWD_PER_STEP = 1, 5
 CHECK_BATCH, TRAIN_BATCH = 8, 48  # the JAX bench's pretrain batch
 WARMUP_STEPS, TIMED_STEPS = 2, 10
 # per supervised step: 39 attention launches (4 x 9 encoder + 3 trunk blocks,
@@ -549,12 +564,44 @@ def loss_checks(fused_loss, plan, gen) -> tuple[float, float]:
                 emit({"check": "masked_patchnorm_sums", "modality": name, "rows": [n, f],
                       "slices": slices, "loss": "l2" if square else "l1", "dtype": str(dtype),
                       "sum_rel_err": s_rel, "sum_rtol": LOSS_SUM_RTOL,
+                      # sums by their rtol; d_rec (l2) per element by its limit, (l1)
+                      # by the sign flips against the share allowed
+                      "max_err_over_tolerance": max(
+                          s_rel / LOSS_SUM_RTOL, (diff / limit).max().item() if square
+                          else flips / (LOSS_SIGN_FLIP_SHARE * diff.numel())),
                       "d_rec_max_abs_err": diff.max().item(),
                       "d_rec_elements_over_tolerance": flips,
                       "d_rec_tolerance_x_abs_plus_rms": LOSS_GRAD_TOL[dtype]})
                 if dtype == torch.bfloat16:
                     sum_err = max(sum_err, abs(s.item() - s_p.item()))
                     grad_err = max(grad_err, diff.max().item())
+    # the grouped forward over the five modalities at once (as a train step
+    # calls it), at batch 8 and the timed steps' batch: against the plain
+    # version, and twice for the same bits
+    for batch in (CHECK_BATCH, TRAIN_BATCH):
+        for dtype in (torch.bfloat16, torch.float32):
+            for square in (False, True):
+                items = [(*loss_inputs(n, f, dtype, gen), slices)
+                         for n, f, slices in flair_loss_rows(plan, batch).values()]
+                got = fused_loss.masked_patchnorm_sums_multi(items, square)
+                again = fused_loss.masked_patchnorm_sums_multi(items, square)
+                torch.cuda.synchronize()
+                want = fused_loss.masked_patchnorm_sums_multi_plain(items, square)
+                rel = ((got[:, 0] - want[:, 0]).abs() / want[:, 0].abs()).max().item()
+                same = torch.equal(got, again)
+                emit({"check": "masked_patchnorm_sums_multi", "batch": batch,
+                      "modalities": list(flair_loss_rows(plan, batch)),
+                      "loss": "l2" if square else "l1", "dtype": str(dtype),
+                      "sum_rel_err": rel, "sum_rtol": LOSS_SUM_RTOL,
+                      "max_err_over_tolerance": rel / LOSS_SUM_RTOL,
+                      "counts_equal": torch.equal(got[:, 1], want[:, 1]),
+                      "two_calls_bit_identical": same})
+                if not (rel <= LOSS_SUM_RTOL and torch.equal(got[:, 1], want[:, 1]) and same):
+                    raise AssertionError(f"grouped loss batch {batch} {dtype}: rel {rel}, "
+                                         f"bit-identical {same}")
+                if dtype == torch.bfloat16 and batch == CHECK_BATCH:
+                    sum_err = max(sum_err, (got[:, 0] - want[:, 0]).abs().max().item())
+                del items, got, again, want
     return sum_err, grad_err
 
 
@@ -747,18 +794,18 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
     fused_loss.fwd_launch_count = fused_loss.bwd_launch_count = 0
     losses_k, update_k, per_step, norm0 = run(3, state, step, batch)
     launches = dict(zip(("attention_fwd", "attention_bwd", "loss_fwd", "loss_bwd"), counts()))
-    want = [ATTN_PER_STEP, ATTN_PER_STEP, LOSS_PER_STEP, LOSS_PER_STEP]
+    want = [ATTN_PER_STEP, ATTN_PER_STEP, LOSS_FWD_PER_STEP, LOSS_BWD_PER_STEP]
     if any(n != want for n in per_step) or 0 in launches.values():
         raise AssertionError(f"train step launches {per_step}, expected {want} per step")
     del model, state, step
     model, _, state, step = fresh(CHECK_BATCH)
-    kernel_fns = (vit.mha_qkv, fused_loss.masked_patchnorm_sums)
+    kernel_fns = (vit.mha_qkv, fused_loss.masked_patchnorm_sums_multi)
     vit.mha_qkv = attention.mha_qkv_plain
-    fused_loss.masked_patchnorm_sums = fused_loss.masked_patchnorm_sums_plain_fwd
+    fused_loss.masked_patchnorm_sums_multi = fused_loss.masked_patchnorm_sums_multi_plain
     try:
         losses_p, update_p, per_step_p, _ = run(3, state, step, batch)
     finally:
-        vit.mha_qkv, fused_loss.masked_patchnorm_sums = kernel_fns
+        vit.mha_qkv, fused_loss.masked_patchnorm_sums_multi = kernel_fns
     if any(any(n) for n in per_step_p):
         raise AssertionError("the plain path launched a kernel")
     rel_k = update_k.norm().item() / norm0
@@ -844,7 +891,7 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
     from 0 for each path), then timed steps at the JAX bench's batch, the EMA
     update and the EMA eval step."""
     from maestro_tpu_torch.conf import MaskConfig, ModelConfig, OptFinetuneConfig, OptProbeConfig
-    from maestro_tpu_torch.models import vit
+    from maestro_tpu_torch.models import heads, vit
     from maestro_tpu_torch.models.mae import build_model
     from maestro_tpu_torch.ops import attention, attn_pool
     from maestro_tpu_torch.train.optim import make_optimizer
@@ -919,6 +966,7 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
 
     out = {"launches": {}, "timed": {}}
     kernel_fns = (vit.mha_qkv, vit.attentive_pool)
+    head_pool_fns = (heads.pool_forward, heads.pool_backward)
     for phase in ("finetune", "probe"):
         # ---- (a) kernel path vs plain path, same weights, batch 8
         batch = make_synthetic_batch(datasets.dataset, CHECK_BATCH, seed=0)
@@ -934,12 +982,17 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
         out["launches"][phase] = launches
         del model, state, step
         model, _, state, step = fresh(phase, CHECK_BATCH)
+        # the seg head's recomputed chunks call the pool's forward and
+        # backward through models.heads, the rest through models.vit
         vit.mha_qkv, vit.attentive_pool = attention.mha_qkv_plain, plain_pool(attn_pool)
+        heads.pool_forward = plain_pool(attn_pool)
+        heads.pool_backward = attn_pool.attentive_pool_bwd_plain
         try:
             losses_p, update_p, per_step_p, _, grads_p, unchanged_p, cm_p = run(
                 model, state, step, batch)
         finally:
             vit.mha_qkv, vit.attentive_pool = kernel_fns
+            heads.pool_forward, heads.pool_backward = head_pool_fns
         if any(any(n) for n in per_step_p):
             raise AssertionError("the plain path launched a kernel")
         rel_k, rel_p = update_k.norm().item() / norm0, update_p.norm().item() / norm0
@@ -1005,7 +1058,7 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
                                 model.head_specs, datasets.dataset.ref_input)
         peak = next((v for k, v in BF16_PEAK_BY_NAME.items() if k in card), None)
         row = {"phase": phase, "batch": bsz, "seg_chunk_rows": SUP_CHUNK[phase],
-               "remat": False,
+               "remat": False, "seg_head_chunks_recomputed_in_backward": True,
                "step_ms_median": step_ms, "step_ms_all": times,
                "tokens_per_sample": FLAIR_TOKENS, "tokens_per_s": FLAIR_TOKENS * bsz / (step_ms / 1e3),
                "model_flops_per_step": flops, "peak_bf16_flops": peak, "peak_from": card,
@@ -1035,6 +1088,219 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
         del model, state, step, batch, metrics
         torch.cuda.empty_cache()
     return out
+
+
+def pretrain_eval_phase(datasets) -> dict:
+    """The pretrain eval step (pixel-space loss, no update) at the timed
+    batch: the kernel path (counts from 0) against the plain path on the same
+    weights, batch and masks, then timed."""
+    from maestro_tpu_torch.conf import MaskConfig, ModelConfig
+    from maestro_tpu_torch.models import vit
+    from maestro_tpu_torch.models.mae import build_model
+    from maestro_tpu_torch.ops import attention
+    from maestro_tpu_torch.train.state import TrainState
+    from maestro_tpu_torch.train.steps import make_pretrain_eval_step
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    model, plan = build_model(
+        datasets, MaskConfig(), ModelConfig(model_size="medium", fusion_mode="group",
+                                            inter_depth=3),
+        dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(0))
+    state = TrainState.create(model, None)
+    evaluate = make_pretrain_eval_step(model, plan)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_synthetic_batch(datasets.dataset, TRAIN_BATCH, seed=2).items()}
+    attention.launch_count = attention.bwd_launch_count = 0
+    loss_k = evaluate(state, batch, 0, 3)["loss_rec"].item()
+    launches = {"attention_fwd": attention.launch_count, "attention_bwd": attention.bwd_launch_count}
+    if launches != {"attention_fwd": ATTN_PER_STEP, "attention_bwd": 0}:
+        raise AssertionError(f"pretrain eval step launches {launches}")
+    kernel_fn = vit.mha_qkv
+    vit.mha_qkv = attention.mha_qkv_plain
+    try:
+        loss_p = evaluate(state, batch, 0, 3)["loss_rec"].item()
+    finally:
+        vit.mha_qkv = kernel_fn
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    for _ in range(2):
+        evaluate(state, batch, 0, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        evaluate(state, batch, 0, i)["loss_rec"].item()
+        times.append((time.perf_counter() - t0) * 1e3)
+    emit({"pretrain_eval_step": {
+        "batch": TRAIN_BATCH, "loss_kernel_path": loss_k, "loss_plain_path": loss_p,
+        "loss_rel_err": rel, "loss_rtol": STEP_LOSS_RTOL,
+        "max_err_over_tolerance": rel / STEP_LOSS_RTOL, "launches": launches,
+        "step_ms_median_host_clock_synchronised": statistics.median(times), "step_ms_all": times,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated()}})
+    if not (math.isfinite(loss_k) and rel <= STEP_LOSS_RTOL):
+        raise AssertionError(f"pretrain eval losses disagree: {loss_k} vs {loss_p}")
+    del model, state, evaluate, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _supervised_counts():
+    from maestro_tpu_torch.ops import attention, attn_pool
+    return (attention.launch_count, attention.bwd_launch_count,
+            attn_pool.launch_count, attn_pool.bwd_launch_count)
+
+
+def _zero_supervised_counts():
+    from maestro_tpu_torch.ops import attention, attn_pool
+    attention.launch_count = attention.bwd_launch_count = 0
+    attn_pool.launch_count = attn_pool.bwd_launch_count = 0
+
+
+def _finetune(datasets, batch_size: int, remat=False, skip_nonfinite: bool = False):
+    """A medium FLAIR finetune model (seed 0), its optimizer, state and step."""
+    from maestro_tpu_torch.conf import MaskConfig, ModelConfig, OptFinetuneConfig
+    from maestro_tpu_torch.models.mae import build_model
+    from maestro_tpu_torch.train.optim import make_optimizer
+    from maestro_tpu_torch.train.state import TrainState
+    from maestro_tpu_torch.train.steps import make_supervised_step
+
+    model, plan = build_model(
+        datasets, MaskConfig(),
+        ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3,
+                    seg_chunk_rows=SUP_CHUNK["finetune"]),
+        dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(0),
+        remat=remat)
+    tx = make_optimizer(OptFinetuneConfig(batch_size=batch_size), "finetune", 1000, model,
+                        skip_nonfinite=skip_nonfinite)
+    return model, plan, tx, TrainState.create(model, tx), make_supervised_step(model, "finetune", tx)
+
+
+def _count_syncs(fn) -> int:
+    """Host syncs that ``fn`` makes, by torch's sync debug mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def skip_nonfinite_phase(datasets) -> dict:
+    """Finetune steps at batch 8 with ``skip_nonfinite``: a good step, a step
+    on a batch with a NaN in one raster (dropped: parameters, moments and the
+    schedule's count bit-identical), a good step (applied); and the host
+    syncs of one step with the option and without it."""
+    from maestro_tpu_torch.train.optim import make_optimizer
+    from maestro_tpu_torch.conf import OptFinetuneConfig
+    from maestro_tpu_torch.train.state import TrainState
+    from maestro_tpu_torch.train.steps import init_metric_states, make_supervised_step
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    model, _, tx, state, step = _finetune(datasets, CHECK_BATCH, skip_nonfinite=True)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_synthetic_batch(datasets.dataset, CHECK_BATCH, seed=4).items()}
+    bad = dict(batch)
+    bad["aerial"] = batch["aerial"].clone()
+    bad["aerial"][0, 0, 0, 0, 0] = float("nan")
+    metrics = init_metric_states(model.head_specs)
+    trained = [p for g in tx.adamw.param_groups for p in g["params"]]
+
+    def snapshot():
+        torch.cuda.synchronize()
+        return ([p.detach().clone() for p in trained]
+                + [tx.adamw.state[p][k].clone() for p in trained
+                   for k in ("exp_avg", "exp_avg_sq")]
+                + [tx.guard.updates.clone(), tx.guard.bias_step.clone()])
+
+    _zero_supervised_counts()
+    state, metrics, logs = step(state, batch, metrics)
+    before = snapshot()
+    state, metrics, logs_bad = step(state, bad, metrics)
+    after_bad = snapshot()
+    dropped_identical = all(torch.equal(a, b) for a, b in zip(before, after_bad))
+    notfinite = (int(tx.guard.notfinite_count), int(tx.guard.total_notfinite))
+    state, metrics, logs = step(state, batch, metrics)
+    after_good = snapshot()
+    launches = dict(zip(SUP_COUNTERS, _supervised_counts()))
+    applied = any(not torch.equal(a, b) for a, b in zip(after_bad[:len(trained)],
+                                                        after_good[:len(trained)]))
+    updates = int(tx.guard.updates)
+    # the host syncs of one step, with the option and without (another
+    # optimizer over the same model; each warmed up by a step first)
+    tx_off = make_optimizer(OptFinetuneConfig(batch_size=CHECK_BATCH), "finetune", 1000, model)
+    state_off = TrainState.create(model, tx_off)
+    step_off = make_supervised_step(model, "finetune", tx_off)
+    step_off(state_off, batch, metrics)
+    syncs_off = _count_syncs(lambda: step_off(state_off, batch, metrics))
+    syncs_on = _count_syncs(lambda: step(state, batch, metrics))
+    emit({"skip_nonfinite_step": {
+        "batch": CHECK_BATCH, "nan_loss_on_bad_batch": not math.isfinite(logs_bad["loss_pred"].item()),
+        "dropped_step_bit_identical": dropped_identical,
+        "notfinite_count_and_total_after_bad": notfinite, "good_step_after_applied": applied,
+        "schedule_count_after_three_steps": updates, "host_syncs_per_step_with_option": syncs_on,
+        "host_syncs_per_step_without": syncs_off, "launches": launches}})
+    if not (dropped_identical and notfinite == (1, 1) and applied and updates == 2):
+        raise AssertionError(f"skip_nonfinite: dropped bit-identical {dropped_identical}, "
+                             f"counts {notfinite}, applied {applied}, updates {updates}")
+    if syncs_on > syncs_off:
+        raise AssertionError(f"skip_nonfinite adds host syncs: {syncs_on} vs {syncs_off}")
+    if 0 in launches.values():
+        raise AssertionError(f"skip_nonfinite steps launched {launches}")
+    del model, tx, state, step, tx_off, state_off, step_off, batch, bad, before, after_bad, after_good
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_phase(datasets) -> dict:
+    """Finetune steps at the bench's batch with ``remat="dots"`` and with
+    none (counts from 0 for each): step time, peak memory, launches a step,
+    and the first two steps' losses of the two held together."""
+    from maestro_tpu_torch.train.steps import init_metric_states
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    bsz = SUP_BATCH["finetune"]
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_synthetic_batch(datasets.dataset, bsz, seed=1).items()}
+    rows = {}
+    for remat in ("dots", False):
+        model, _, _, state, step = _finetune(datasets, bsz, remat=remat)
+        metrics = init_metric_states(model.head_specs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_supervised_counts()
+        losses = []
+        for _ in range(WARMUP_STEPS):
+            state, metrics, logs = step(state, batch, metrics)
+            losses.append(logs["loss_pred"].item())
+        totals = _supervised_counts()
+        launches = [n // WARMUP_STEPS for n in totals]
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        for i in range(5):
+            marks[i].record()
+            state, metrics, logs = step(state, batch, metrics)
+        marks[-1].record()
+        torch.cuda.synchronize()
+        times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        rows[str(remat)] = {"remat": remat, "batch": bsz, "step_ms_median": statistics.median(times),
+                            "step_ms_all": times, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                            "first_losses": losses,
+                            "launches_per_step": dict(zip(SUP_COUNTERS, launches)),
+                            "launches": dict(zip(SUP_COUNTERS, totals))}
+        emit({"remat_step": rows[str(remat)]})
+        del model, state, step, metrics
+        torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(rows["dots"]["first_losses"],
+                                               rows["False"]["first_losses"])]
+    emit({"remat_agreement": {"loss_rel_err": rel, "loss_rtol": STEP_LOSS_RTOL,
+                              "max_err_over_tolerance": max(rel) / STEP_LOSS_RTOL}})
+    if not all(e <= STEP_LOSS_RTOL for e in rel):
+        raise AssertionError(f"remat dots and none disagree: {rel}")
+    return rows["dots"]["launches"]
 
 
 def main() -> None:
@@ -1081,6 +1347,7 @@ def main() -> None:
                        "bwd": attention.smem_bytes(d, backward=True)}
             for d in attention.SUPPORTED_HEAD_DIMS},
         "pool_kernels": ptxas_kernels(log, POOL_KERNEL_NAMES),
+        "loss_kernels": ptxas_kernels(log, ("patchnorm_fwd_multi", "patchnorm_bwd")),
         "pool_rows_dynamic_smem_bytes": {
             f"E={e}": {"fwd": attn_pool.smem_bytes(e, backward=False),
                        "bwd": attn_pool.smem_bytes(e, backward=True)}
@@ -1151,6 +1418,11 @@ def main() -> None:
     # ---- 5c. the finetune and probe paths
     sup = supervised_phase(datasets, card, want_profile)
     sl = sup["launches"]
+
+    # ---- 5d. the pretrain eval step, skip_nonfinite and remat
+    pe = pretrain_eval_phase(datasets)
+    sk = skip_nonfinite_phase(datasets)
+    rd = remat_phase(datasets)
 
     # ---- 6. kernel times at the main paths' shapes, back to back
     # (inputs stay warm in L2, as they are right after the qkv projection)
@@ -1280,14 +1552,18 @@ def main() -> None:
                          ("bound_ms", bound_ms), ("fwd_ms", fwd_ms)):
             bwd_totals[key] += count * val
         del qkv, q, k, v, out, lse, dout
+    # the loss: the forward as a step calls it (one grouped launch over the
+    # five modalities) and per modality alone; the backward per modality
     loss_rows = {"fwd": [], "bwd": []}
     loss_totals = {d: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for d in loss_rows}
     loss_kinds = {d: {} for d in loss_rows}
+    items = []
     for name, (n, f, slices) in flair_loss_rows(train["plan"], train_batch).items():
         t, r, m = loss_inputs(n, f, torch.bfloat16, gen)
+        items.append((t, r, m, slices))
         g = torch.tensor(0.37, device="cuda")
         runs = {
-            "fwd": (lambda: fused_loss._fwd_kernel(t, r, m, slices, False),
+            "fwd": (lambda: fused_loss._fwd_multi_kernel([(t, r, m, slices)], False),
                     lambda: fused_loss.masked_patchnorm_sums_plain_fwd(t, r, m, slices, False)),
             "bwd": (lambda: fused_loss._bwd_kernel(t, r, m, g, slices, False),
                     lambda: fused_loss.masked_patchnorm_sums_plain_bwd(t, r, m, g, slices, False)),
@@ -1298,25 +1574,31 @@ def main() -> None:
             bound_ms, bound_by = loss_bound(n, f, 2, direction == "bwd")
             loss_rows[direction].append({"modality": name, "rows": [n, f], "ms": ms,
                                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                         "bound_by": bound_by})
+                                         "bound_by": bound_by, "bound_share": bound_ms / ms})
             loss_kinds[direction][bound_by] = loss_kinds[direction].get(bound_by, 0.0) + bound_ms
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_ms)):
                 loss_totals[direction][key] += val
         del t, r, m
+    loss_totals["fwd"]["ms_sum_alone"] = loss_totals["fwd"]["ms"]
+    loss_totals["fwd"]["ms"] = time_ms(lambda: fused_loss._fwd_multi_kernel(items, False), 20)
+    loss_totals["fwd"]["plain_ms"] = time_ms(
+        lambda: fused_loss.masked_patchnorm_sums_multi_plain(items, False), 3, warmup=1)
+    del items
 
     emit({"seconds_total": round(time.perf_counter() - t_start, 1)})
     tl = train["launches"]
-    loss_entry = lambda direction, fn_name, line, launches, err: {  # noqa: E731
+    # the launches of the paths this slice added, by counter
+    extra = lambda key: {"pretrain_eval": pe.get(key, 0), "skip_nonfinite": sk.get(key, 0),  # noqa: E731
+                         "finetune_remat_dots": rd.get(key, 0)}
+    loss_entry = lambda direction, fn_name, line, launches, err, per_step, times: {  # noqa: E731
         "name": fn_name, "route": "cuda", "source": "maestro_tpu_torch/csrc/fused_loss.cu",
         "replaces": f"maestro_tpu/ops/fused_loss.py:{line}",
-        "launches": launches,
+        "launches": launches, "launches_per_step": per_step,
         "launches_by_path": {"serve": 0, "train": launches, "finetune": 0, "probe": 0},
         "max_abs_err": err, **loss_totals[direction],
         "bound_by": max(loss_kinds[direction], key=loss_kinds[direction].get),
-        "library_ms": None,
-        "times_are": f"sum over the {LOSS_PER_STEP} launches of one batch-{train_batch} "
-                     "train step (one per modality), bf16 staging, l1",
-        "per_shape": loss_rows[direction]}
+        "bound_share": loss_totals[direction]["bound_ms"] / loss_totals[direction]["ms"],
+        "library_ms": None, "times_are": times, "per_shape": loss_rows[direction]}
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/flash_attention.cu",
@@ -1328,10 +1610,11 @@ def main() -> None:
          "also_replaces": ["maestro_tpu/ops/attention.py:488", "maestro_tpu/ops/attention.py:124",
                            "maestro_tpu/ops/attention.py:82"],
          "launches": (serve_launches["attention"] + tl["attention_fwd"]
-                      + sl["finetune"]["attention_fwd"] + sl["probe"]["attention_fwd"]),
+                      + sl["finetune"]["attention_fwd"] + sl["probe"]["attention_fwd"]
+                      + sum(extra("attention_fwd").values())),
          "launches_by_path": {"serve": serve_launches["attention"], "train": tl["attention_fwd"],
                               "finetune": sl["finetune"]["attention_fwd"],
-                              "probe": sl["probe"]["attention_fwd"]},
+                              "probe": sl["probe"]["attention_fwd"], **extra("attention_fwd")},
          "max_abs_err": attn_err,
          "ms": totals["ms"], "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
          "bound_by": max(bound_kinds, key=bound_kinds.get), "library_ms": totals["library_ms"],
@@ -1349,10 +1632,10 @@ def main() -> None:
          "also_replaces": ["maestro_tpu/ops/attention.py:507", "maestro_tpu/ops/attention.py:141",
                            "maestro_tpu/ops/attention.py:82"],
          "launches": (tl["attention_bwd"] + sl["finetune"]["attention_bwd"]
-                      + sl["probe"]["attention_bwd"]),
+                      + sl["probe"]["attention_bwd"] + sum(extra("attention_bwd").values())),
          "launches_by_path": {"serve": 0, "train": tl["attention_bwd"],
                               "finetune": sl["finetune"]["attention_bwd"],
-                              "probe": sl["probe"]["attention_bwd"]},
+                              "probe": sl["probe"]["attention_bwd"], **extra("attention_bwd")},
          "max_abs_err": bwd_err,
          "ms": bwd_totals["ms"], "plain_ms": bwd_totals["plain_ms"],
          "bound_ms": bwd_totals["bound_ms"], "bound_by": max(bwd_kinds, key=bwd_kinds.get),
@@ -1362,8 +1645,15 @@ def main() -> None:
                       "kernel, the dq convert); library = "
                       "the backward of scaled_dot_product_attention",
          "per_shape": bwd_rows, "finetune_full_length_shapes": ft_bwd_rows},
-        loss_entry("fwd", "masked_patchnorm_sums_fwd", 53, tl["loss_fwd"], loss_sum_err),
-        loss_entry("bwd", "masked_patchnorm_sums_bwd", 76, tl["loss_bwd"], loss_grad_err),
+        loss_entry("fwd", "masked_patchnorm_sums_fwd_multi", 53, tl["loss_fwd"], loss_sum_err,
+                   LOSS_FWD_PER_STEP,
+                   f"one grouped launch over the five modalities of a batch-{train_batch} train "
+                   "step (ms), bf16 staging, l1; ms_sum_alone and per_shape: each modality "
+                   "alone (a grouped launch of one)"),
+        loss_entry("bwd", "masked_patchnorm_sums_bwd", 76, tl["loss_bwd"], loss_grad_err,
+                   LOSS_BWD_PER_STEP,
+                   f"sum over the {LOSS_BWD_PER_STEP} launches of one batch-{train_batch} train "
+                   "step (one per modality), bf16 staging, l1"),
         {"name": "attentive_pool_fwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/attn_pool.cu",
          "design": "factored form, three launches: pool_u (u = query . W_k per head, fp32), "
@@ -1374,10 +1664,10 @@ def main() -> None:
                    "64 x 64 tiles, cp.async ring)",
          "replaces": "maestro_tpu/ops/attn_pool.py:72",
          "launches": (serve_launches["pool"] + sl["finetune"]["pool_fwd"]
-                      + sl["probe"]["pool_fwd"]),
+                      + sl["probe"]["pool_fwd"] + sum(extra("pool_fwd").values())),
          "launches_by_path": {"serve": serve_launches["pool"], "train": 0,
                               "finetune": sl["finetune"]["pool_fwd"],
-                              "probe": sl["probe"]["pool_fwd"]},
+                              "probe": sl["probe"]["pool_fwd"], **extra("pool_fwd")},
          "max_abs_err": pool_err,
          "ms": pool_ms, "plain_ms": pool_plain_ms, "bound_ms": pool_bound_ms,
          "bound_by": pool_bound_by, "library_ms": None,
@@ -1396,9 +1686,10 @@ def main() -> None:
                    "pool_bwd_finish (dW_k, d_query rank-1 from du; dW_v slices in order); no "
                    "atomics",
          "replaces": "maestro_tpu/ops/attn_pool.py:123",
-         "launches": sl["finetune"]["pool_bwd"] + sl["probe"]["pool_bwd"],
+         "launches": (sl["finetune"]["pool_bwd"] + sl["probe"]["pool_bwd"]
+                      + sum(extra("pool_bwd").values())),
          "launches_by_path": {"serve": 0, "train": 0, "finetune": sl["finetune"]["pool_bwd"],
-                              "probe": sl["probe"]["pool_bwd"]},
+                              "probe": sl["probe"]["pool_bwd"], **extra("pool_bwd")},
          "max_abs_err": pool_bwd_err,
          "ms": pool_bwd_rows[0]["ms"], "plain_ms": pool_bwd_rows[0]["plain_ms"],
          "bound_ms": pool_bwd_rows[0]["bound_ms"], "bound_by": pool_bwd_rows[0]["bound_by"],

@@ -101,13 +101,17 @@ class ModelConfig:
 
 @dataclass
 class TrainerConfig:
-    """Execution config: precision policy and the non-finite guard."""
+    """Execution config: precision policy, activation recompute and the
+    non-finite guard."""
 
     # compute dtype for matmuls/activations; params stay fp32
     compute_dtype: str = "bfloat16"
+    # activation recompute of the transformer blocks (models/vit.py):
+    # false | true/"full" | "dots" (save the 2-D products' outputs) | "gelu" |
+    # "mlp" (MLPs only)
+    remat: bool | str = False
     # drop optimizer updates whose gradients contain inf/nan (the JAX
-    # package's optax.apply_if_finite); not ported yet: make_optimizer
-    # refuses it
+    # package's optax.apply_if_finite; make_optimizer(skip_nonfinite=...))
     skip_nonfinite: bool = False
 
 

@@ -29,6 +29,6 @@ def build_experiment_model(datasets, cfg: ExperimentConfig, dtype=None, *,
         raise NotImplementedError(msg)
     model, plan = build_model(
         datasets, cfg.mask, cfg.model, dtype=dtype, device=device,
-        generator=generator,
+        generator=generator, remat=cfg.trainer.remat,
     )
     return model, plan, False

@@ -8,8 +8,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from maestro_tpu_torch.models.vit import AttentiveReduce, dense, init_linear
+from maestro_tpu_torch.models.vit import LN_EPS, AttentiveReduce, dense, init_linear, layer_norm
+from maestro_tpu_torch.ops.attn_pool import attentive_pool_bwd, attentive_pool_forward
+
+# the pool's forward and backward as a recomputed chunk calls them (a caller may
+# point them at the plain versions)
+pool_forward = attentive_pool_forward
+pool_backward = attentive_pool_bwd
 
 
 def resize_matrix(in_grid: int, out_grid: int) -> np.ndarray:
@@ -89,8 +96,9 @@ class ChunkedSegHead(nn.Module):
                 persistent=False,
             )
 
-    def _chunk(self, row0: int, xs: tuple[torch.Tensor, ...]) -> torch.Tensor:
-        """One ref-grid row chunk: resize-slice + concat + reduce + proj."""
+    def _x_ref(self, row0: int, xs: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """The chunk's date-stacked grid ``[B, DG_tot, r*G, E]``: each
+        modality's grid resized to the chunk's ref rows, concatenated."""
         rows = self.chunk_rows
         parts = []
         for i, (x, g) in enumerate(zip(xs, self.mod_grids)):
@@ -101,22 +109,84 @@ class ChunkedSegHead(nn.Module):
                 x.reshape(b, dg, g, g, e), a_full,
             )
             parts.append(part.reshape(b, dg, -1, e))
-        x_ref = torch.cat(parts, dim=1)  # [B, DG_tot, r*G, E]
-        b = x_ref.shape[0]
-        if self.type_head == "attentive":
-            y = self.reduce(x_ref)  # [B, r*G, dim]
-        else:
-            y = x_ref.mean(dim=1)
+        return torch.cat(parts, dim=1)
+
+    def _pixels(self, y: torch.Tensor) -> torch.Tensor:
+        """proj + the pixel shuffle inside the chunk, feature order (C, ph, pw)."""
+        b = y.shape[0]
         y = dense(y, self.proj, self.dtype)  # [B, r*G, K*p^2]
-        # pixel shuffle inside the chunk, feature order (C, ph, pw)
-        g, p, k = self.ref_grid, self.patch_size, self.num_classes
+        g, p, k, rows = self.ref_grid, self.patch_size, self.num_classes, self.chunk_rows
         y = y.reshape(b, rows, g, k, p, p).permute(0, 3, 1, 4, 2, 5)
         return y.reshape(b, k, rows * p, g * p)
 
+    def _chunk(self, row0: int, *xs: torch.Tensor) -> torch.Tensor:
+        """One ref-grid row chunk: resize-slice + concat + reduce + proj."""
+        x_ref = self._x_ref(row0, xs)
+        y = self.reduce(x_ref) if self.type_head == "attentive" else x_ref.mean(dim=1)
+        return self._pixels(y)
+
+    def _fused_pool_shape(self, xs) -> bool:
+        b, e = xs[0].shape[0], xs[0].shape[-1]
+        shape = (b, sum(x.shape[1] for x in xs), self.chunk_rows * self.ref_grid, e)
+        return (self.type_head == "attentive"
+                and self.reduce._use_fused_pool(torch.empty(shape, device="meta")))
+
+    def _chunk_recomputed(self, row0: int, xs: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """``_chunk`` with its activations recomputed in the backward, as the
+        JAX package remats each chunk keeping only the fused pool's residuals
+        (out, m, den): the backward replays the resize that rebuilds the
+        chunk's grid, never the pool's forward.  Without the fused pool the
+        whole chunk is recomputed."""
+        if not self._fused_pool_shape(xs):
+            return checkpoint(self._chunk, row0, *xs, use_reentrant=False,
+                              preserve_rng_state=False)
+        red = self.reduce
+        out = _RecomputedChunkPool.apply(
+            lambda parts: self._x_ref(row0, parts).to(red.dtype), red.heads, len(xs),
+            red._kv_weight_bf16(xs[0]), *xs, red.norm.weight, red.norm.bias, red.to_kv.weight,
+            red.query)
+        return self._pixels(layer_norm(out, red.norm_fc, red.dtype))
+
     def forward(self, xs: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        # several chunks under autograd: each recomputed in the backward (the
+        # reference's remat-scan), so no chunk's grid outlives its forward
+        recompute = torch.is_grad_enabled() and self.ref_grid // self.chunk_rows > 1
         chunks = [
-            self._chunk(row0, xs)
+            self._chunk_recomputed(row0, xs) if recompute else self._chunk(row0, *xs)
             for row0 in range(0, self.ref_grid, self.chunk_rows)
         ]
         pixels = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=2)
         return pixels[:, None]  # [B, 1, K, H, W]
+
+
+class _RecomputedChunkPool(torch.autograd.Function):
+    """The date pool of one chunk, ``pool(build(xs)) -> out``, saving only xs
+    (the trunk's grids, alive anyway), the pool's parameters and its
+    ``(out, m, den)``; the backward rebuilds the chunk's grid from xs and
+    runs the pool's backward on it."""
+
+    @staticmethod
+    def forward(ctx, build, heads, n_x, w16, *inputs):
+        xs, params = inputs[:n_x], inputs[n_x:]
+        x_ref = build(xs)
+        out, m, den = pool_forward(x_ref, *params, heads, LN_EPS, w_kv_bf16=w16)
+        ctx.save_for_backward(*xs, *params, out, m, den)
+        ctx.build, ctx.heads, ctx.n_x, ctx.w16 = build, heads, n_x, w16
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        n_x = ctx.n_x
+        xs, (ln_scale, ln_bias, w_kv, query), (out, m, den) = (
+            saved[:n_x], saved[n_x : n_x + 4], saved[n_x + 4 :])
+        need_dx = any(ctx.needs_input_grad[4 : 4 + n_x])
+        with torch.enable_grad() if need_dx else torch.no_grad():
+            xs_d = [x.detach().requires_grad_(need_dx) for x in xs]
+            x_ref = ctx.build(xs_d)
+        dx, d_scale, d_bias, d_w, d_query = pool_backward(
+            x_ref.detach(), ln_scale, ln_bias, w_kv if ctx.w16 is None else ctx.w16, query,
+            out, m, den, g, ctx.heads, LN_EPS, need_dx=need_dx)
+        d_xs = torch.autograd.grad(x_ref, xs_d, dx) if need_dx else (None,) * n_x
+        return (None, None, None, None, *d_xs, d_scale.to(ln_scale.dtype),
+                d_bias.to(ln_bias.dtype), d_w.to(w_kv.dtype), d_query.to(query.dtype))

@@ -127,6 +127,7 @@ class MaestroMAE(nn.Module):
         date_dim: int = 8,
         seg_chunk_rows: int = 2,
         dtype: torch.dtype = torch.bfloat16,
+        remat: bool | str = False,
     ) -> None:
         super().__init__()
         self.plan, self.arch, self.head_specs = plan, arch, head_specs
@@ -188,7 +189,7 @@ class MaestroMAE(nn.Module):
         def encoder(depth: int) -> Transformer:
             return Transformer(
                 arch.embed_dim, depth, arch.heads, arch.dim_head,
-                arch.embed_dim * arch.mlp_ratio, dtype, generator, device,
+                arch.embed_dim * arch.mlp_ratio, dtype, generator, device, remat=remat,
             )
 
         self.encoders = nn.ModuleDict({
@@ -206,6 +207,7 @@ class MaestroMAE(nn.Module):
                 # quirk kept from reference mae.py:162: decoder MLP width is
                 # embed_dim * decoder_mlp_ratio, not decoder_dim * ratio
                 arch.embed_dim * arch.decoder_mlp_ratio, dtype, generator, device,
+                remat=remat,
             )
             for name in plan.encoder_names
         })
@@ -440,11 +442,13 @@ def build_model(
     *,
     device="cuda",
     generator: torch.Generator | None = None,
+    remat: bool | str = False,
 ) -> tuple[MaestroMAE, FusionPlan]:
     """Build the flagship MAE for a dataset + model config.
 
     ``generator`` seeds the initial weights (default: a fresh generator with
-    seed 0).
+    seed 0); ``remat`` is ``trainer.remat``, the activation recompute of
+    every encoder, decoder and trunk ``Transformer`` (models/vit.py).
     """
     device = resolve_device(device)
     if model_cfg.model != "mae":
@@ -499,5 +503,6 @@ def build_model(
         fac_date_enc=1.0 if model_cfg.use_date_enc else 0.0,
         seg_chunk_rows=model_cfg.seg_chunk_rows,
         dtype=dtype,
+        remat=remat,
     )
     return module.eval(), plan

@@ -17,6 +17,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from maestro_tpu_torch.ops.attention import mha_qkv
 from maestro_tpu_torch.ops.attn_pool import attentive_pool
@@ -76,57 +81,111 @@ class Attention(nn.Module):
         return dense(out.reshape(b, l, -1), self.out, self.dtype)
 
 
+def _recompute(fn, *args, context_fn=None):
+    """``fn(*args)``, its activations recomputed in the backward (saved as
+    ``context_fn`` selects, where given); a plain call without autograd."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+
+# the 2-D products (F.linear dispatches to these): what the "dots" remat keeps,
+# as the JAX package's dots_with_no_batch_dims_saveable keeps its dense layers'
+# outputs; LayerNorm, GELU, the attention kernel and the rest are recomputed
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 class FeedForward(nn.Module):
-    """Pre-LN MLP with exact GELU."""
+    """Pre-LN MLP with exact GELU.  ``remat="gelu"`` recomputes the GELU
+    and ``fc2``'s input in the backward, keeping the LayerNorm's and ``fc1``'s
+    outputs (the JAX package's ``save_only_these_names("mlp_ln", "mlp_fc1")``)."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
-                 generator: torch.Generator, device) -> None:
+                 generator: torch.Generator, device, remat: bool | str = False) -> None:
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.remat = dtype, remat
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, device=device)
         self.fc1 = nn.Linear(dim, hidden_dim, device=device)
         self.fc2 = nn.Linear(hidden_dim, dim, device=device)
         init_linear(self.fc1, generator)
         init_linear(self.fc2, generator)
 
+    def _tail(self, h: torch.Tensor) -> torch.Tensor:
+        return dense(F.gelu(h, approximate="none"), self.fc2, self.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = layer_norm(x, self.norm, self.dtype)
-        y = F.gelu(dense(y, self.fc1, self.dtype), approximate="none")
-        return dense(y, self.fc2, self.dtype)
+        h = dense(y, self.fc1, self.dtype)
+        return _recompute(self._tail, h) if self.remat == "gelu" else self._tail(h)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block: x + attn(ln(x)); x + mlp(ln(x))."""
+    """Pre-LN transformer block: x + attn(ln(x)); x + mlp(ln(x)).  With
+    ``remat_mlp`` True the MLP is recomputed whole in the backward, with
+    "gelu" as ``FeedForward`` says."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, mlp_dim: int,
-                 dtype: torch.dtype, generator: torch.Generator, device) -> None:
+                 dtype: torch.dtype, generator: torch.Generator, device,
+                 remat_mlp: bool | str = False) -> None:
         super().__init__()
+        self.remat_mlp = remat_mlp
         self.attn = Attention(dim, heads, dim_head, dtype, generator, device)
-        self.mlp = FeedForward(dim, mlp_dim, dtype, generator, device)
+        self.mlp = FeedForward(dim, mlp_dim, dtype, generator, device,
+                               remat="gelu" if remat_mlp == "gelu" else False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(x)
+        if self.remat_mlp is True:
+            return x + _recompute(self.mlp, x)
         return x + self.mlp(x)
 
 
 class Transformer(nn.Module):
-    """Stack of blocks (``block0`` .. ``block{depth-1}``) + final LayerNorm."""
+    """Stack of blocks (``block0`` .. ``block{depth-1}``) + final LayerNorm.
+
+    ``remat`` trades activation memory for recompute in the backward, as the
+    JAX package's ``Transformer.remat``:
+      False        — save everything
+      True/"full"  — recompute whole blocks
+      "dots"       — recompute blocks but save the 2-D products' outputs
+                     (LayerNorm, GELU and attention are recomputed)
+      "gelu"       — in the MLPs only, recompute the GELU (save the
+                     LayerNorm's and fc1's outputs)
+      "mlp"        — recompute only the MLPs
+    Any other value saves everything, as the reference's ``else`` does.
+    """
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int, dtype: torch.dtype, generator: torch.Generator,
-                 device) -> None:
+                 device, remat: bool | str = False) -> None:
         super().__init__()
         self.depth, self.dtype = depth, dtype
+        self.remat_blocks = "full" if remat in (True, "full") else "dots" if remat == "dots" else None
+        remat_mlp = "gelu" if remat == "gelu" else remat == "mlp"
         for i in range(depth):
             self.add_module(
                 f"block{i}",
-                Block(dim, heads, dim_head, mlp_dim, dtype, generator, device),
+                Block(dim, heads, dim_head, mlp_dim, dtype, generator, device,
+                      remat_mlp=remat_mlp),
             )
         self.norm = nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        context = _dots_context if self.remat_blocks == "dots" else None
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            x = block(x) if self.remat_blocks is None else _recompute(
+                block, x, context_fn=context)
         return layer_norm(x, self.norm, self.dtype)
 
 

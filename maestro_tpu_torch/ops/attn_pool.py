@@ -352,16 +352,41 @@ def attentive_pool_bwd(
     return dx, small[heads * e:(heads + 1) * e], small[(heads + 1) * e:], d_w, d_query
 
 
+def _bf16_weight(x, w_kv, w_kv_bf16):
+    """On the card, the bf16 copy of ``w_kv`` the kernels multiply with."""
+    if x.device.type != "cuda":
+        return None
+    w16 = w_kv.detach().to(torch.bfloat16) if w_kv_bf16 is None else w_kv_bf16
+    if w16.shape != w_kv.shape or w16.dtype != torch.bfloat16 or w16.device != x.device:
+        msg = f"w_kv_bf16 must be a bfloat16 {tuple(w_kv.shape)} tensor on {x.device}"
+        raise ValueError(msg)
+    return w16
+
+
+def attentive_pool_forward(x, ln_scale, ln_bias, w_kv, query, heads, eps=1e-5,
+                           w_kv_bf16=None):
+    """``(out, m, den)`` with no gradient: the forward of ``attentive_pool``
+    (the kernel for a CUDA tensor, the plain version for a CPU one), for a
+    caller that runs the backward itself with ``attentive_pool_bwd``."""
+    _check_params(x, ln_scale, ln_bias, w_kv, query, heads)
+    return _pool_fwd(x, ln_scale, ln_bias, w_kv, query, heads, eps,
+                     _bf16_weight(x, w_kv, w_kv_bf16))
+
+
+def _pool_fwd(x, ln_scale, ln_bias, w_kv, query, heads, eps, w16):
+    with torch.no_grad():
+        if x.device.type == "cpu":
+            return attentive_pool_plain(x, ln_scale, ln_bias, w_kv, query, heads, eps)
+        return _fwd_kernel(x, ln_scale, ln_bias, w16, query, heads, eps)
+
+
 class _AttentivePool(torch.autograd.Function):
     """The pool with its gradient in x and the four parameters; saves
     ``(x, out, m, den)`` and the parameters, as the JAX ``_vjp_fwd`` does."""
 
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, w_kv, query, heads, eps, w16):
-        if x.device.type == "cpu":
-            out, m, den = attentive_pool_plain(x, ln_scale, ln_bias, w_kv, query, heads, eps)
-        else:
-            out, m, den = _fwd_kernel(x, ln_scale, ln_bias, w16, query, heads, eps)
+        out, m, den = _pool_fwd(x, ln_scale, ln_bias, w_kv, query, heads, eps, w16)
         ctx.mark_non_differentiable(m, den)
         ctx.save_for_backward(x, ln_scale, ln_bias, w_kv, query, out, m, den, w16)
         ctx.heads, ctx.eps = heads, eps
@@ -397,10 +422,5 @@ def attentive_pool(
     copy of it passes it as ``w_kv_bf16`` and saves a cast on every launch
     (the gradient still goes to ``w_kv``)."""
     _check_params(x, ln_scale, ln_bias, w_kv, query, heads)
-    w16 = None
-    if x.device.type == "cuda":
-        w16 = w_kv.detach().to(torch.bfloat16) if w_kv_bf16 is None else w_kv_bf16
-        if w16.shape != w_kv.shape or w16.dtype != torch.bfloat16 or w16.device != x.device:
-            msg = f"w_kv_bf16 must be a bfloat16 {tuple(w_kv.shape)} tensor on {x.device}"
-            raise ValueError(msg)
-    return _AttentivePool.apply(x, ln_scale, ln_bias, w_kv, query, heads, eps, w16)
+    return _AttentivePool.apply(x, ln_scale, ln_bias, w_kv, query, heads, eps,
+                                _bf16_weight(x, w_kv, w_kv_bf16))

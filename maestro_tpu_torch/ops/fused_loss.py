@@ -11,9 +11,11 @@ slice.  ``masked_patchnorm_sums`` computes
 and its gradient ``d_rec = g * (-sign(t_norm - r) or -2 (t_norm - r)) * mask``
 (recomputing the normalization; targets and masks get no gradient).
 
-For CUDA tensors the forward and backward launch ``masked_patchnorm_sums_fwd``
-/ ``_bwd`` (csrc/fused_loss.cu); for CPU tensors they run the plain versions
-below.  Replaces the JAX package's ``ops/fused_loss.py`` ``_fwd_kernel`` and
+``masked_patchnorm_sums_multi`` computes the sums of several modalities at
+once: for CUDA tensors in one launch of ``masked_patchnorm_sums_fwd_multi``
+(csrc/fused_loss.cu), whose backward launches ``masked_patchnorm_sums_bwd``
+once a modality; for CPU tensors both run the plain versions below.
+``masked_patchnorm_sums`` is the grouped entry with one item.  Replaces the JAX package's ``ops/fused_loss.py`` ``_fwd_kernel`` and
 ``_bwd_kernel``; unlike that kernel's 128-lane gate, every feature width takes
 the kernel, so on the card every single-band-group modality of the four
 datasets goes through it.  What bounds it, and how the kernel meets it, is
@@ -30,12 +32,14 @@ from maestro_tpu_torch.ops.patch import patchify_pixels
 
 EPS = 1.0e-6
 MAX_SLICES = 16  # csrc/fused_loss.cu kMaxSlices
+MAX_MODALITIES = 8  # csrc/fused_loss.cu kMaxMods
 
-fwd_launch_count = 0  # once per masked_patchnorm_sums_fwd call (its two launches)
-bwd_launch_count = 0  # once per masked_patchnorm_sums_bwd launch
+fwd_launch_count = 0  # once per masked_patchnorm_sums_fwd_multi launch (all modalities)
+bwd_launch_count = 0  # once per masked_patchnorm_sums_bwd launch (one modality)
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _lib = None
+_scratch: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _norm_diffs(t: torch.Tensor, r: torch.Tensor, norm_slices) -> list[torch.Tensor]:
@@ -66,6 +70,13 @@ def masked_patchnorm_sums_plain_bwd(t, r, m, g, norm_slices, square: bool):
     return (g * d * m.float()).to(r.dtype)
 
 
+def masked_patchnorm_sums_multi_plain(items, square: bool) -> torch.Tensor:
+    """Plain version of the grouped forward: ``[len(items), 2]`` fp32, a row
+    ``(sum_err, count)`` per ``(t, r, m, norm_slices)`` item."""
+    return torch.stack([torch.stack(masked_patchnorm_sums_plain_fwd(t, r, m, sl, square))
+                        for t, r, m, sl in items])
+
+
 def _kernel():
     """The loss library (built with the other sources at first use)."""
     global _lib
@@ -74,12 +85,13 @@ def _kernel():
 
         lib = load_library("fused_loss")
         int_p = ctypes.POINTER(ctypes.c_int)
-        lib.masked_patchnorm_sums_scratch.restype = ctypes.c_int
-        lib.masked_patchnorm_sums_scratch.argtypes = [ctypes.c_int]
-        lib.masked_patchnorm_sums_fwd.restype = ctypes.c_int
-        lib.masked_patchnorm_sums_fwd.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [int_p, int_p]
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+        lib.masked_patchnorm_sums_multi_scratch.restype = ctypes.c_int
+        lib.masked_patchnorm_sums_multi_scratch.argtypes = []
+        lib.masked_patchnorm_sums_fwd_multi.restype = ctypes.c_int
+        lib.masked_patchnorm_sums_fwd_multi.argtypes = (
+            [ctypes.c_int] + [ctypes.POINTER(ctypes.c_void_p)] * 3
+            + [ctypes.POINTER(ctypes.c_longlong)] + [int_p] * 6
+            + [ctypes.c_int] + [ctypes.c_void_p] * 4
         )
         lib.masked_patchnorm_sums_bwd.restype = ctypes.c_int
         lib.masked_patchnorm_sums_bwd.argtypes = (
@@ -88,6 +100,18 @@ def _kernel():
         )
         _lib = lib
     return _lib
+
+
+def _scratch_for(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The grouped forward's block partials and its ticket (zeroed once; the
+    kernel's last block sets it back to 0), kept per device: calls on one
+    device take turns on one stream."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _scratch:
+        n = _kernel().masked_patchnorm_sums_multi_scratch()
+        _scratch[key] = (torch.empty(n, dtype=torch.float32, device=device),
+                         torch.zeros(1, dtype=torch.int32, device=device))
+    return _scratch[key]
 
 
 def _slice_arrays(norm_slices):
@@ -118,26 +142,36 @@ def _check(t: torch.Tensor, r: torch.Tensor, m: torch.Tensor, norm_slices) -> No
         raise ValueError(msg)
 
 
-def _fwd_kernel(t, r, m, norm_slices, square: bool):
+def _fwd_multi_kernel(items, square: bool) -> torch.Tensor:
+    """One launch of ``masked_patchnorm_sums_fwd_multi`` for every item."""
     global fwd_launch_count
     lib = _kernel()
-    t, r, m = t.contiguous(), r.contiguous(), m.contiguous()
-    n, f = t.shape
-    scratch = torch.empty(lib.masked_patchnorm_sums_scratch(n), dtype=torch.float32,
-                          device=t.device)
-    out = torch.empty(2, dtype=torch.float32, device=t.device)
-    starts, sizes = _slice_arrays(norm_slices)
-    with torch.cuda.device(t.device):
-        err = lib.masked_patchnorm_sums_fwd(
-            t.data_ptr(), r.data_ptr(), m.data_ptr(), n, f, starts, sizes,
-            len(norm_slices), int(square), _DTYPE_CODE[t.dtype], scratch.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+    items = [(t.contiguous(), r.contiguous(), m.contiguous(), sl) for t, r, m, sl in items]
+    dev = items[0][0].device
+    k = len(items)
+    ptrs = [(ctypes.c_void_p * k)(*(it[i].data_ptr() for it in items)) for i in range(3)]
+    rows = (ctypes.c_longlong * k)(*(it[0].shape[0] for it in items))
+    ints = lambda values: (ctypes.c_int * len(values))(*values)  # noqa: E731
+    slices = [sl for *_, sl in items]
+    offsets = [0]
+    for sl in slices:
+        offsets.append(offsets[-1] + len(sl))
+    out = torch.empty((k, 2), dtype=torch.float32, device=dev)
+    partials, ticket = _scratch_for(dev)
+    with torch.cuda.device(dev):
+        err = lib.masked_patchnorm_sums_fwd_multi(
+            k, *ptrs, rows, ints([it[0].shape[1] for it in items]),
+            ints([_DTYPE_CODE[it[0].dtype] for it in items]), ints([len(sl) for sl in slices]),
+            ints(offsets[:-1]), ints([s for sl in slices for s, _ in sl]),
+            ints([z for sl in slices for _, z in sl]), int(square), partials.data_ptr(),
+            ticket.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
-        msg = f"masked_patchnorm_sums_fwd failed with CUDA error {err} for [{n}, {f}] {t.dtype}"
+        shapes = [tuple(it[0].shape) for it in items]
+        msg = f"masked_patchnorm_sums_fwd_multi failed with CUDA error {err} for rows {shapes}"
         raise RuntimeError(msg)
     fwd_launch_count += 1
-    return out[0], out[1]
+    return out
 
 
 def _bwd_kernel(t, r, m, g, norm_slices, square: bool):
@@ -161,33 +195,57 @@ def _bwd_kernel(t, r, m, g, norm_slices, square: bool):
     return dr
 
 
-class _MaskedPatchnormSums(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t, r, m, norm_slices, square):
-        ctx.save_for_backward(t, r, m)
-        ctx.norm_slices, ctx.square = norm_slices, square
-        if t.device.type == "cpu":
-            return masked_patchnorm_sums_plain_fwd(t, r, m, norm_slices, square)
-        return _fwd_kernel(t, r, m, norm_slices, square)
+class _MaskedPatchnormSumsMulti(torch.autograd.Function):
+    """The grouped forward over items ``(t_k, r_k, m_k)`` (passed flat) with
+    their ``norm_slices``; differentiable in every r_k, one backward launch
+    a modality."""
 
     @staticmethod
-    def backward(ctx, g_sum, g_count):
-        del g_count  # the count does not depend on r
-        t, r, m = ctx.saved_tensors
-        dr = None
-        if ctx.needs_input_grad[1]:
-            if t.device.type == "cpu":
-                dr = masked_patchnorm_sums_plain_bwd(t, r, m, g_sum, ctx.norm_slices, ctx.square)
-            else:
-                dr = _bwd_kernel(t, r, m, g_sum, ctx.norm_slices, ctx.square)
-        return None, dr, None, None, None
+    def forward(ctx, norm_slices, square, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.norm_slices, ctx.square = norm_slices, square
+        items = [(*tensors[3 * k : 3 * k + 3], sl) for k, sl in enumerate(norm_slices)]
+        if tensors[0].device.type == "cpu":
+            return masked_patchnorm_sums_multi_plain(items, square)
+        return _fwd_multi_kernel(items, square)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        grads = [None] * len(saved)
+        for k, sl in enumerate(ctx.norm_slices):
+            if not ctx.needs_input_grad[3 + 3 * k]:  # r_k (after norm_slices, square, t_k)
+                continue
+            t, r, m = saved[3 * k : 3 * k + 3]
+            bwd = masked_patchnorm_sums_plain_bwd if t.device.type == "cpu" else _bwd_kernel
+            # the count column's cotangent is dropped: the count does not depend on r
+            grads[3 * k + 1] = bwd(t, r, m, g[k, 0], sl, ctx.square)
+        return (None, None, *grads)
+
+
+def masked_patchnorm_sums_multi(items, square: bool) -> torch.Tensor:
+    """``[len(items), 2]`` fp32: ``(sum_err, count)`` with patch-group-norm
+    targets for each ``(t, r, m, norm_slices)`` item (at most 8, one device),
+    in one launch on the card; differentiable in every r."""
+    items = [(t, r, m, tuple((int(s), int(z)) for s, z in sl)) for t, r, m, sl in items]
+    if not 1 <= len(items) <= MAX_MODALITIES:
+        msg = f"masked_patchnorm_sums_multi takes 1 to {MAX_MODALITIES} items, got {len(items)}"
+        raise ValueError(msg)
+    for t, r, m, sl in items:
+        _check(t, r, m, sl)
+    if len({t.device for t, *_ in items}) != 1:
+        msg = "masked_patchnorm_sums_multi: every item must lie on one device"
+        raise ValueError(msg)
+    return _MaskedPatchnormSumsMulti.apply(
+        tuple(sl for *_, sl in items), bool(square),
+        *(x for t, r, m, _ in items for x in (t, r, m)))
 
 
 def masked_patchnorm_sums(t, r, m, norm_slices, square: bool):
-    """``(sum_err, count)`` with patch-group-norm targets; differentiable in r."""
-    norm_slices = tuple((int(s), int(z)) for s, z in norm_slices)
-    _check(t, r, m, norm_slices)
-    return _MaskedPatchnormSums.apply(t, r, m, norm_slices, bool(square))
+    """``(sum_err, count)`` with patch-group-norm targets; differentiable in r
+    (the grouped forward with one item)."""
+    out = masked_patchnorm_sums_multi([(t, r, m, norm_slices)], square)
+    return out[0, 0], out[0, 1]
 
 
 def fused_reconstruction_loss(plan, targets, rec, masks, loss_type: str = "l1_norm",
@@ -200,7 +258,8 @@ def fused_reconstruction_loss(plan, targets, rec, masks, loss_type: str = "l1_no
     pixel-space form (``[B, D, C, H, W]`` + pixel mask), which is
     re-patchified here.  Requires a ``_norm`` loss variant and single-band-group
     modalities (all four reference datasets); falls back to the pixel loss per
-    modality otherwise.  ``stage_dtype`` (default bf16 on the card, fp32 on the
+    modality otherwise.  The kernel's modalities go through one grouped call.
+    ``stage_dtype`` (default bf16 on the card, fp32 on the
     CPU, as the JAX package picks bf16 for its accelerator) is the dtype of the
     patchified staging rows — normalization statistics are always fp32.
     """
@@ -218,18 +277,15 @@ def fused_reconstruction_loss(plan, targets, rec, masks, loss_type: str = "l1_no
         on_card = next(iter(targets.values())).device.type == "cuda"
         stage_dtype = torch.bfloat16 if on_card else torch.float32
 
-    total, weights = 0.0, 0.0
+    items, fallback = {}, {}
     for name, spec in plan.mod_specs.items():
-        weight = spec.num_dates * spec.tokens_per_date
-        weights = weights + weight
         p = spec.patch_size
-
         if spec.len_bands != 1:  # pixel-space fallback for this modality
             loss_fn, _ = loss_elem(loss_type)
             target = patch_group_normalize(targets[name].float(), p, spec.norm_groups)
             err = loss_fn(target - rec[name].float())
             m = masks[name].float()
-            total = total + weight * (err * m).sum() / (m.sum() + EPS_COUNT)
+            fallback[name] = (err * m).sum() / (m.sum() + EPS_COUNT)
             continue
 
         t = patchify_pixels(targets[name].to(stage_dtype), p)
@@ -248,6 +304,22 @@ def fused_reconstruction_loss(plan, targets, rec, masks, loss_type: str = "l1_no
         for chans in spec.norm_groups:
             slices.append((off * p * p, chans * p * p))
             off += chans
-        s, c = masked_patchnorm_sums(t, r, m.float(), tuple(slices), square)
-        total = total + weight * s / torch.clamp(c, min=1e-8)
+        items[name] = (t, r, m.float(), tuple(slices))
+
+    # every kernel modality in one launch (a launch per 8)
+    names = list(items)
+    sums = {}
+    for i in range(0, len(names), MAX_MODALITIES):
+        group = names[i : i + MAX_MODALITIES]
+        out = masked_patchnorm_sums_multi([items[n] for n in group], square)
+        sums.update((n, out[j]) for j, n in enumerate(group))
+
+    total, weights = 0.0, 0.0
+    for name, spec in plan.mod_specs.items():
+        weight = spec.num_dates * spec.tokens_per_date
+        weights = weights + weight
+        if name in fallback:
+            total = total + weight * fallback[name]
+        else:
+            total = total + weight * sums[name][0] / torch.clamp(sums[name][1], min=1e-8)
     return total / weights

@@ -93,6 +93,28 @@ def make_pretrain_step(
     return step
 
 
+def make_pretrain_eval_step(model: MaestroMAE, plan: FusionPlan,
+                            loss_type: str = "l1_norm") -> Callable:
+    """``step(state, batch, seed, index=0) -> {"loss_rec": loss}``: the
+    pretrain validation loss, no update.  Masks are drawn from
+    ``mask_generator(seed, index)`` (the JAX runtime folds the batch index
+    into its validation key); the loss is the pixel-space
+    ``reconstruction_loss``, as the JAX package's eval step takes it."""
+    device = resolve_device(model.device)
+    loss_fn = pretrain_loss_fn(model, plan, loss_type, fused_loss=False)
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: dict, seed: int, index: int = 0):
+        if state.model is not model:
+            msg = "the train state holds another model than this step"
+            raise ValueError(msg)
+        model.eval()
+        loss = loss_fn(batch_to_device(model, batch, device), mask_generator(seed, index))
+        return {"loss_rec": loss}
+
+    return step
+
+
 def _check_phase(phase: str) -> None:
     if phase not in ("probe", "finetune"):
         msg = f"supervised phase must be probe|finetune, got {phase!r}"

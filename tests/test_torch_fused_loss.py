@@ -69,6 +69,42 @@ def test_masked_patchnorm_sums_matches_jax(layout, square):
     np.testing.assert_allclose(to_np(rt.grad), np.asarray(wdr), rtol=RTOL, atol=RTOL * g)
 
 
+@pytest.mark.parametrize("square", [False, True], ids=["l1", "l2"])
+def test_grouped_sums_match_jax(square):
+    """The grouped entry (one call for every FLAIR-like layout, as a train
+    step makes it; its plain version on the CPU) against the JAX package's
+    ``masked_patchnorm_sums`` per layout, sums and each r's gradient; s1's F =
+    8 has a slice boundary at column 4, inside one 16-byte bf16 vector."""
+    items, want = [], []
+    for i, (n, f, slices) in enumerate(LAYOUTS.values()):
+        t = rng_normal(20 + i, n, f, scale=3.0) + 0.5
+        r = rng_normal(30 + i, n, f)
+        m = (np.random.default_rng(40 + i).random((n, 1)) < 0.75).astype(np.float32)
+        g = 0.1 * (i + 1)
+        (ws, wc), vjp = jax.vjp(
+            lambda rr, t=t, m=m, slices=slices: JFL.masked_patchnorm_sums(
+                jnp.asarray(t), rr, jnp.asarray(m), slices, square), jnp.asarray(r))
+        want.append((float(ws), float(wc), np.asarray(vjp((jnp.float32(g), jnp.float32(0.0)))[0]), g))
+        items.append((torch.from_numpy(t), torch.from_numpy(r).requires_grad_(True),
+                      torch.from_numpy(m), slices))
+    assert LAYOUTS["s1"][2] == ((0, 4), (4, 4))
+    before = (TFL.fwd_launch_count, TFL.bwd_launch_count)
+    out = TFL.masked_patchnorm_sums_multi(items, square)
+    assert out.shape == (len(items), 2) and out.dtype == torch.float32
+    (out[:, 0] * torch.tensor([g for *_, g in want])).sum().backward()
+    for (ws, wc, wdr, g), (_, r, _, _), (s, c) in zip(want, items, out.detach()):
+        np.testing.assert_allclose(s.item(), ws, rtol=RTOL)
+        assert c.item() == wc
+        np.testing.assert_allclose(to_np(r.grad), wdr, rtol=RTOL, atol=RTOL * g)
+    assert (TFL.fwd_launch_count, TFL.bwd_launch_count) == before  # no kernel on the CPU
+    # one item is masked_patchnorm_sums; more than 8 are refused
+    t, r, m, slices = items[3]
+    single = TFL.masked_patchnorm_sums(t, r.detach(), m, slices, square)
+    np.testing.assert_array_equal([x.item() for x in single], out[3].detach().numpy())
+    with pytest.raises(ValueError, match="1 to 8 items"):
+        TFL.masked_patchnorm_sums_multi([items[3]] * 9, square)
+
+
 def _flair_plans():
     ds = DatasetsConfig(name_dataset="flair").dataset
     jds = JDatasetsConfig(name_dataset="flair").dataset

@@ -37,7 +37,7 @@ from maestro_tpu_torch.models.mae import build_model
 from maestro_tpu_torch.port.from_jax import load_jax_params
 from maestro_tpu_torch.serve import make_embed_fn, make_predict_fn, serving_params
 
-from _torch_port_utils import randomized_tree, single_thread_torch, to_np  # noqa: F401
+from _torch_port_utils import randomized_tree, single_thread_torch, synthetic_tree, to_np  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("single_thread_torch")
 
@@ -49,16 +49,22 @@ PRETRAIN_ONLY = ("decoders.", "pixelify.", "enc_to_dec.")
 BATCH = 2
 
 
-def _micro_cfg(cls):
-    return cls(model_size="micro", fusion_mode="group", inter_depth=1)
+# the other fusion modes (and trunk depths) than the group / 1 of every other test
+FUSION_MODES = [("shared", 0), ("monotemp", 0), ("mod", 0), ("mod", 1), ("group", 0)]
+FUSION_IDS = ["shared", "monotemp", "mod0", "mod1", "group0"]
 
 
-def _pair(name: str, dtype: str):
+def _micro_cfg(cls, mode: str = "group", inter_depth: int = 1):
+    return cls(model_size="micro", fusion_mode=mode, inter_depth=inter_depth)
+
+
+def _pair(name: str, dtype: str, mode: str = "group", inter_depth: int = 1):
     """JAX model + perturbed numpy params + the port's model holding them."""
     jdt, tdt = {"float32": (jnp.float32, torch.float32),
                 "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     jds = JDatasetsConfig(name_dataset=name)
-    jmodel, _ = jax_build_model(jds, JMaskConfig(), _micro_cfg(JModelConfig), dtype=jdt)
+    jmodel, _ = jax_build_model(jds, JMaskConfig(), _micro_cfg(JModelConfig, mode, inter_depth),
+                                dtype=jdt)
     batch = make_synthetic_batch(jds.dataset, BATCH)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     key = jax.random.PRNGKey(0)
@@ -67,7 +73,7 @@ def _pair(name: str, dtype: str):
     )(jbatch)
     tree = randomized_tree(params, seed=1)
     model, _ = build_model(
-        DatasetsConfig(name_dataset=name), MaskConfig(), _micro_cfg(ModelConfig),
+        DatasetsConfig(name_dataset=name), MaskConfig(), _micro_cfg(ModelConfig, mode, inter_depth),
         dtype=tdt, device="cpu",
     )
     load_jax_params(model, tree, missing_ok=PRETRAIN_ONLY)
@@ -92,6 +98,27 @@ def test_finetune_predict_matches_jax(request, fixture_name):
     assert set(got) == set(want)
     for name in want:
         assert tuple(got[name].shape) == want[name].shape
+        np.testing.assert_allclose(to_np(got[name]), to_np(want[name]), **FP32_TOL)
+
+
+@pytest.mark.parametrize(("mode", "inter_depth"), FUSION_MODES, ids=FUSION_IDS)
+@pytest.mark.parametrize("dataset", ["treesatai_ts", "pastis_hd"])
+def test_fusion_modes_predict_match_jax(dataset, mode, inter_depth):
+    """Finetune-phase predict in the fusion modes other than group with one
+    trunk block."""
+    jds = JDatasetsConfig(name_dataset=dataset)
+    jmodel, _ = jax_build_model(jds, JMaskConfig(), _micro_cfg(JModelConfig, mode, inter_depth),
+                                dtype=jnp.float32)
+    model, _ = build_model(DatasetsConfig(name_dataset=dataset), MaskConfig(),
+                           _micro_cfg(ModelConfig, mode, inter_depth), dtype=torch.float32,
+                           device="cpu")
+    tree = synthetic_tree(model, seed=2, skip=PRETRAIN_ONLY)  # no JAX init to trace
+    load_jax_params(model, tree, missing_ok=PRETRAIN_ONLY)
+    batch = make_synthetic_batch(jds.dataset, BATCH)
+    want = jax_make_predict_fn(jmodel, "finetune")(tree, {k: jnp.asarray(v) for k, v in batch.items()})
+    got = make_predict_fn(model, "finetune")(batch)
+    assert set(got) == set(want)
+    for name in want:
         np.testing.assert_allclose(to_np(got[name]), to_np(want[name]), **FP32_TOL)
 
 

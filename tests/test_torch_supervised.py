@@ -46,9 +46,9 @@ from maestro_tpu_torch.conf import (
     OptFinetuneConfig,
     OptProbeConfig,
 )
+from maestro_tpu_torch.models import heads as TH
 from maestro_tpu_torch.models import mae as TM
 from maestro_tpu_torch.models.mae import HeadSpec, build_model
-from maestro_tpu_torch.ops import attn_pool as TP
 from maestro_tpu_torch.port.from_jax import _target_name, load_jax_params
 from maestro_tpu_torch.specs.fusion import build_fusion_plan
 from maestro_tpu_torch.train import optim as TO
@@ -71,19 +71,27 @@ OPT = {"probe": (OptProbeConfig, JOptProbeConfig),
        "finetune": (OptFinetuneConfig, JOptFinetuneConfig)}
 
 
-def _cfg(cls, size="micro", chunk=2):
-    return cls(model_size=size, fusion_mode="group", inter_depth=1, seg_chunk_rows=chunk)
+# the other fusion modes (and trunk depths) than the group / 1 of every other test
+FUSION_MODES = [("shared", 0), ("monotemp", 0), ("mod", 0), ("mod", 1), ("group", 0)]
+FUSION_IDS = ["shared", "monotemp", "mod0", "mod1", "group0"]
 
 
-def _pair(name: str, size: str = "micro", chunk: int = 2):
+def _cfg(cls, size="micro", chunk=2, mode="group", inter_depth=1):
+    return cls(model_size=size, fusion_mode=mode, inter_depth=inter_depth, seg_chunk_rows=chunk)
+
+
+def _pair(name: str, size: str = "micro", chunk: int = 2, mode: str = "group",
+          inter_depth: int = 1):
     """JAX model + synthetic numpy params (heads included) + the port's model
     holding them, and one batch (numpy) with its labels."""
     jds = JDatasetsConfig(name_dataset=name)
-    jmodel, _ = JM.build_model(jds, JMaskConfig(), _cfg(JModelConfig, size, chunk),
+    jmodel, _ = JM.build_model(jds, JMaskConfig(),
+                               _cfg(JModelConfig, size, chunk, mode, inter_depth),
                                dtype=jnp.float32)
     batch = make_synthetic_batch(jds.dataset, BATCH, seed=3)
     model, _ = build_model(DatasetsConfig(name_dataset=name), MaskConfig(),
-                           _cfg(ModelConfig, size, chunk), dtype=torch.float32, device="cpu")
+                           _cfg(ModelConfig, size, chunk, mode, inter_depth),
+                           dtype=torch.float32, device="cpu")
     tree = synthetic_tree(model, seed=1)
     load_jax_params(model, tree)
     return jmodel, tree, batch, model
@@ -198,11 +206,28 @@ def test_supervised_steps_match_jax(phase, dataset, lw_decay, accumulate, steps)
     assert frozen and all(torch.equal(params_now[n], p) for n, p in frozen.items())
 
 
+@pytest.mark.parametrize(("mode", "inter_depth"), FUSION_MODES, ids=FUSION_IDS)
+@pytest.mark.parametrize("dataset", ["treesat", "pastis"])
+def test_fusion_modes_finetune_loss_and_grads_match_jax(dataset, mode, inter_depth):
+    """The finetune loss and every gradient leaf in the fusion modes other
+    than group with one trunk block (the heads read the streams each mode
+    regroups)."""
+    jmodel, tree, batch, model = _pair(DATASETS[dataset], mode=mode, inter_depth=inter_depth)
+    (want_loss, _), want_grads = _jax_grad_fn(jmodel, "finetune")(
+        tree, {k: jnp.asarray(v) for k, v in batch.items()})
+    device_batch = TS.batch_to_device(model, batch, torch.device("cpu"), targets=True)
+    loss, _ = prediction_losses(model.head_specs, device_batch, model(device_batch, "finetune"))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=LOSS_RTOL)
+    _assert_grads_match(model, want_grads)
+
+
 def test_finetune_step_through_the_fused_pool(monkeypatch):
     """One finetune step's loss and every gradient with the seg head's date
     pool on the fused path: ``micro`` widened to E = 128 in both packages,
     PASTIS-HD with 4 ref rows a chunk (32 positions, 25 dates), the JAX pool
-    in interpret mode; the port's pool is its autograd Function."""
+    in interpret mode; each of the port's two chunks goes through the pool
+    Function that recomputes the chunk in the backward."""
     monkeypatch.setattr(JP, "INTERPRET", True)
     for archs in (JM.MAE_ARCHS, TM.MAE_ARCHS):
         monkeypatch.setitem(archs, "micro128",
@@ -210,8 +235,8 @@ def test_finetune_step_through_the_fused_pool(monkeypatch):
     jmodel, tree, batch, model = _pair("pastis_hd", "micro128", chunk=4)
     reduce = model.heads["pastis_seg"].reduce
     calls = []
-    monkeypatch.setattr(TP._AttentivePool, "apply",
-                        staticmethod(lambda *a, f=TP._AttentivePool.apply: calls.append(1) or f(*a)))
+    monkeypatch.setattr(TH._RecomputedChunkPool, "apply", staticmethod(
+        lambda *a, f=TH._RecomputedChunkPool.apply: calls.append(1) or f(*a)))
     (want_loss, _), want_grads = _jax_grad_fn(jmodel, "finetune")(
         tree, {k: jnp.asarray(v) for k, v in batch.items()})
     tx = TO.make_optimizer(OptFinetuneConfig(), "finetune", TOTAL, model)
@@ -395,11 +420,108 @@ def test_accumulation_and_lw_decay_match_optax():
     assert TO.lw_decay_multiplier(names[3], 0.5) == 1.0
 
 
+def _adam_moments(opt_state) -> dict[tuple[str, ...], tuple]:
+    """``(mu, nu)`` of every parameter an optax state's AdamW states hold, by
+    path (the frozen roles' masked leaves have none)."""
+    is_adam = lambda x: isinstance(x, optax.ScaleByAdamState)  # noqa: E731
+    moments = {}
+    for st in jax.tree_util.tree_leaves(opt_state, is_leaf=is_adam):
+        if is_adam(st):
+            for (path, mu), nu in zip(jax.tree_util.tree_flatten_with_path(st.mu)[0],
+                                      jax.tree_util.tree_leaves(st.nu)):
+                moments[tuple(str(k.key) for k in path)[1:]] = (mu, nu)
+    return moments
+
+
 def test_skip_nonfinite_is_refused():
+    """With ``skip_nonfinite`` a micro-step whose gradients hold a NaN is
+    refused as ``optax.apply_if_finite`` (outermost, around ``MultiSteps``)
+    refuses it: against the JAX package's optimizer so wrapped, at
+    ``accumulate_grad_batches`` 1 and 2, every parameter and both AdamW
+    moments after every micro-step, and the guard's counts.  The limit of
+    consecutive refusals is lowered from 100 to 2 on both sides, so the third
+    bad micro-step in a row is applied (NaN and all, as optax applies it).
+    The supervised step refuses the pretrain phase."""
+    names = ("encoders.s2.block0.attn.qkv.weight", "encoder_inter.block1.mlp.fc1.bias",
+             "patch_embed.s2.proj0.weight", "heads.t.linear.weight", "decoders.s2.norm.bias")
+    jnames = (("encoders_s2", "block0", "attn", "qkv", "kernel"),
+              ("encoder_inter", "block1", "mlp", "fc1", "bias"),
+              ("patch_embed_s2", "proj0", "kernel"), ("heads_t", "linear", "kernel"),
+              ("decoders_s2", "norm", "bias"))
+    limit = 2
+    # 1: the micro-step's gradient of the second leaf holds a NaN
+    bad = (0, 1, 0, 0, 1, 1, 1, 0, 0)
+    rng = np.random.default_rng(91)
+    values = [rng.normal(size=(3, 2)).astype(np.float32) for _ in names]
+    grads = [[rng.normal(size=(3, 2)).astype(np.float32) for _ in names] for _ in bad]
+    for step_grads, b in zip(grads, bad):
+        if b:
+            step_grads[1][1, 0] = np.nan
+
+    def nest(leaves):
+        tree: dict = {}
+        for path, leaf in zip(jnames, leaves):
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = jnp.asarray(leaf)
+        return {"params": tree}
+
+    def close(got, want, what):
+        np.testing.assert_allclose(to_np(got), np.asarray(want), rtol=1e-5, atol=1e-6,
+                                   err_msg=what)  # NaN where both are NaN
+
+    for accumulate in (1, 2):
+        module = torch.nn.Module()
+        for name, value in zip(names, values):
+            owner = module
+            *path, leaf = name.split(".")
+            for key in path:
+                if not hasattr(owner, key):
+                    owner.add_module(key, torch.nn.Module())
+                owner = getattr(owner, key)
+            owner.register_parameter(leaf, torch.nn.Parameter(torch.from_numpy(value.copy())))
+        kw = dict(base_lr=0.05, batch_size=4, accumulate_grad_batches=accumulate, lw_decay=0.5)
+        jtx = optax.apply_if_finite(
+            JO.make_optimizer(JOptFinetuneConfig(**kw), "finetune", 4, nest(values), lw_decay=0.5),
+            max_consecutive_errors=limit)
+        jparams = nest(values)
+        jstate = jtx.init(jparams)
+        tx = TO.make_optimizer(OptFinetuneConfig(**kw), "finetune", 4, module,
+                               skip_nonfinite=True)
+        assert tx.skip_nonfinite and tx.max_consecutive_errors == 100
+        tx.max_consecutive_errors = limit
+        params = dict(module.named_parameters())
+        for i, step_grads in enumerate(grads):
+            updates, jstate = jtx.update(nest(step_grads), jstate, jparams)
+            jparams = optax.apply_updates(jparams, updates)
+            for name, g in zip(names, step_grads):
+                params[name].grad = torch.from_numpy(g.copy())
+            tx.step()
+            moments = _adam_moments(jstate.inner_state)
+            for name, path in zip(names, jnames):
+                want = jparams["params"]
+                for key in path:
+                    want = want[key]
+                what = f"accumulate {accumulate}, micro-step {i}: {name}"
+                close(params[name], want, what)
+                if path in moments:
+                    st = tx.adamw.state[params[name]]
+                    close(st["exp_avg"], moments[path][0], what + " exp_avg")
+                    close(st["exp_avg_sq"], moments[path][1], what + " exp_avg_sq")
+            guard = tx.guard
+            assert int(guard.notfinite_count) == int(jstate.notfinite_count)
+            assert int(guard.total_notfinite) == int(jstate.total_notfinite)
+            assert bool(guard.last_finite) == bool(jstate.last_finite)
+            assert len(moments) == 4  # the decoder side is frozen
+        # the first refusal is dropped whole; the third in a row is applied
+        assert int(guard.total_notfinite) == 4
+        assert np.isnan(to_np(params[names[1]])).any()
+        assert np.isfinite(to_np(params[names[0]])).all()
+        np.testing.assert_array_equal(to_np(params[names[4]]), values[4])  # decoder: frozen
+
     model, _ = build_model(DatasetsConfig(name_dataset="treesatai_ts"), MaskConfig(),
                            _cfg(ModelConfig), device="cpu")
-    with pytest.raises(ValueError, match="skip_nonfinite"):
-        TO.make_optimizer(OptFinetuneConfig(), "finetune", 10, model, skip_nonfinite=True)
     with pytest.raises(ValueError, match="probe\\|finetune"):
         TS.make_supervised_step(model, "pretrain", TO.make_optimizer(
             OptFinetuneConfig(), "finetune", 10, model))

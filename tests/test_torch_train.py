@@ -34,6 +34,7 @@ from maestro_tpu.models.mae import MAE_ARCHS as J_ARCHS
 from maestro_tpu.models.mae import build_model as jax_build_model
 from maestro_tpu.specs.fusion import build_fusion_plan as j_build_fusion_plan
 from maestro_tpu.train import optim as JO
+from maestro_tpu.train import steps as JSteps
 from maestro_tpu.train.steps import pretrain_loss_fn as jax_pretrain_loss_fn
 from maestro_tpu.utils import flops as JF
 from maestro_tpu.utils.testing import make_synthetic_batch
@@ -52,7 +53,12 @@ from maestro_tpu_torch.serve import batch_to_device
 from maestro_tpu_torch.specs.fusion import build_fusion_plan
 from maestro_tpu_torch.train import optim as TO
 from maestro_tpu_torch.train.state import TrainState
-from maestro_tpu_torch.train.steps import make_pretrain_step, mask_generator, pretrain_loss_fn
+from maestro_tpu_torch.train.steps import (
+    make_pretrain_eval_step,
+    make_pretrain_step,
+    mask_generator,
+    pretrain_loss_fn,
+)
 from maestro_tpu_torch.utils import flops as TF
 
 from _torch_port_utils import single_thread_torch, synthetic_tree, to_np  # noqa: F401
@@ -69,8 +75,15 @@ BF16_LOSS_RTOL = 1e-2
 DATASETS = {"treesat": "treesatai_ts", "pastis": "pastis_hd"}
 
 
-def _micro_cfg(cls):
-    return cls(model_size="micro", fusion_mode="group", inter_depth=1)
+# the other fusion modes (and trunk depths) than the group / 1 of every other test:
+# shared and monotemp flatten dates or modalities into the batch (no structural
+# mask, shuffle batch_factor > 1), mod keeps one stream a modality
+FUSION_MODES = [("shared", 0), ("monotemp", 0), ("mod", 0), ("mod", 1), ("group", 0)]
+FUSION_IDS = ["shared", "monotemp", "mod0", "mod1", "group0"]
+
+
+def _micro_cfg(cls, mode: str = "group", inter_depth: int = 1):
+    return cls(model_size="micro", fusion_mode=mode, inter_depth=inter_depth)
 
 
 class MaskRecorder:
@@ -125,16 +138,17 @@ class MaskRecorder:
         monkeypatch.setattr(TMK, "draw_masks", draw_masks)
 
 
-def _pair(name: str, dtype: str = "float32"):
+def _pair(name: str, dtype: str = "float32", mode: str = "group", inter_depth: int = 1):
     """JAX model + synthetic numpy params + the port's model holding them."""
     jdt, tdt = {"float32": (jnp.float32, torch.float32),
                 "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
     jds = JDatasetsConfig(name_dataset=name)
-    jmodel, jplan = jax_build_model(jds, JMaskConfig(), _micro_cfg(JModelConfig), dtype=jdt)
+    jmodel, jplan = jax_build_model(jds, JMaskConfig(),
+                                    _micro_cfg(JModelConfig, mode, inter_depth), dtype=jdt)
     batch = make_synthetic_batch(jds.dataset, BATCH)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     model, plan = build_model(
-        DatasetsConfig(name_dataset=name), MaskConfig(), _micro_cfg(ModelConfig),
+        DatasetsConfig(name_dataset=name), MaskConfig(), _micro_cfg(ModelConfig, mode, inter_depth),
         dtype=tdt, device="cpu",
     )
     tree = synthetic_tree(model, seed=1, skip=("heads.",))  # the heads take no part
@@ -147,7 +161,7 @@ def _port_loss(model, plan, batch, fused: bool) -> torch.Tensor:
     return loss_fn(batch_to_device(model, batch, torch.device("cpu")), torch.Generator())
 
 
-def _assert_grads_match(model, want_grads) -> None:
+def _assert_grads_match(model, want_grads, min_leaves: int = 51) -> None:
     """Every gradient leaf within GRAD_TOL of that leaf's max |grad|; the
     heads (absent from the JAX tree) get none."""
     params = dict(model.named_parameters())
@@ -162,7 +176,7 @@ def _assert_grads_match(model, want_grads) -> None:
         err = np.abs(got - want).max()
         assert err <= limit, f"{name}: max abs err {err:.3e} > {limit:.3e}"
         compared += 1
-    assert compared > 50
+    assert compared >= min_leaves
     for name, p in params.items():  # the heads take no part in pretraining
         assert (p.grad is None) == name.startswith("heads."), name
 
@@ -184,6 +198,52 @@ def test_pretrain_loss_and_grads_match_jax(monkeypatch, dataset, space):
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=LOSS_RTOL)
     _assert_grads_match(model, want_grads)
+
+
+@pytest.mark.parametrize(("mode", "inter_depth"), FUSION_MODES, ids=FUSION_IDS)
+@pytest.mark.parametrize("dataset", ["treesat", "pastis"])
+def test_fusion_modes_pretrain_loss_and_grads_match_jax(monkeypatch, dataset, mode, inter_depth):
+    """The token-space pretrain loss and every gradient leaf in the fusion
+    modes other than group with one trunk block, masks replayed."""
+    jmodel, jplan, tree, jbatch, model, plan, batch = _pair(
+        DATASETS[dataset], mode=mode, inter_depth=inter_depth)
+    rec = MaskRecorder(monkeypatch)
+    want_loss, want_grads = jax.jit(jax.value_and_grad(jax_pretrain_loss_fn(
+        jmodel, jplan, "l1_norm")))(tree, jbatch, jax.random.PRNGKey(11))
+    rec.collect(jplan)
+    rec.replay(monkeypatch)
+    model.zero_grad(set_to_none=True)
+    loss = _port_loss(model, plan, batch, fused=True)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=LOSS_RTOL)
+    _assert_grads_match(model, want_grads, min_leaves=20)
+
+
+@pytest.mark.parametrize("dataset", ["treesat", "pastis"])
+def test_pretrain_eval_step_matches_jax(monkeypatch, dataset):
+    """``make_pretrain_eval_step`` (pixel-space loss, masks from the seed and
+    the batch index, no update) against the JAX package's eval step body on
+    the same masks; the weights stay as they were."""
+    jmodel, jplan, tree, jbatch, model, plan, batch = _pair(DATASETS[dataset])
+    rec = MaskRecorder(monkeypatch)
+    want = JSteps._build_pretrain_eval_step(jmodel, jplan, "l1_norm")(
+        tree, jbatch, jax.random.PRNGKey(13))["loss_rec"]
+    rec.collect(jplan)
+    rec.replay(monkeypatch)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = TrainState.create(model, None)
+    logs = make_pretrain_eval_step(model, plan)(state, batch, 0, 5)
+    assert set(logs) == {"loss_rec"} and logs["loss_rec"].requires_grad is False
+    np.testing.assert_allclose(logs["loss_rec"].item(), float(want), rtol=LOSS_RTOL)
+    assert all(torch.equal(p, before[n]) for n, p in model.named_parameters())
+    assert state.step == 0
+    draws = []
+    monkeypatch.setattr(TMK, "draw_masks", lambda p, g, b: draws.append(g.initial_seed())
+                        or (_ for _ in ()).throw(StopIteration))
+    for index in (5, 6):
+        with pytest.raises(StopIteration):
+            make_pretrain_eval_step(model, plan)(state, batch, 0, index)
+    assert draws == [mask_generator(0, 5).initial_seed(), mask_generator(0, 6).initial_seed()]
 
 
 def test_pretrain_trajectory_matches_jax(monkeypatch):
