@@ -37,7 +37,20 @@ parameters):
   bit-identical), the next good one applied, and the option adds no host
   sync to a step (``torch.cuda.set_sync_debug_mode``);
 * finetune steps at batch 32 with ``remat="dots"`` and with none: step time,
-  peak memory, and the two held together by their first losses.
+  peak memory, and the two held together by their first losses;
+* the experiment path — ``maestro_tpu_torch.main.main`` (the CLI) over 32
+  FLAIR-HUB tiles written to a temporary directory (``.npy`` tiles, CSV
+  tables), batch 16, EMA, pretrain 1 epoch, probe 3 (val epochs 2 and 3
+  replayed from the frozen-trunk feature cache), finetune 2 (cosia monitor,
+  test on the best checkpoint): every phase's losses, checkpoints and files;
+  each kernel's launches per pass (train, eval, replay, the cache's first-
+  replay check, image logging) equal to batches x launches a batch, and no
+  plain version run; the cached probe's val metrics against an uncached probe
+  run from the same pretrain checkpoint; the newest finetune checkpoint
+  restored bit-identically; the host syncs of every train epoch; and per
+  phase the epoch and in-epoch step times against a staged-once step at the
+  same batch, the device's idle share over a train epoch, peak memory, the
+  loader alone, and the checkpoint saves' blocking and background times.
 
 The loss forward of a pretrain step is one grouped launch over the five
 modalities; it is also held against its plain version at the five FLAIR
@@ -53,6 +66,7 @@ printed.  Without a CUDA device the script exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -918,12 +932,7 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
                 make_supervised_step(model, phase, tx))
 
     def counts():
-        return (attention.launch_count, attention.bwd_launch_count,
-                attn_pool.launch_count, attn_pool.bwd_launch_count)
-
-    def zero_counts():
-        attention.launch_count = attention.bwd_launch_count = 0
-        attn_pool.launch_count = attn_pool.bwd_launch_count = 0
+        return kernel_counts()[:len(SUP_COUNTERS)]
 
     def run(model, state, step, batch):
         """Losses and launches per step; the update of step 1, the norm of the
@@ -1144,18 +1153,6 @@ def pretrain_eval_phase(datasets) -> dict:
     return launches
 
 
-def _supervised_counts():
-    from maestro_tpu_torch.ops import attention, attn_pool
-    return (attention.launch_count, attention.bwd_launch_count,
-            attn_pool.launch_count, attn_pool.bwd_launch_count)
-
-
-def _zero_supervised_counts():
-    from maestro_tpu_torch.ops import attention, attn_pool
-    attention.launch_count = attention.bwd_launch_count = 0
-    attn_pool.launch_count = attn_pool.bwd_launch_count = 0
-
-
 def _finetune(datasets, batch_size: int, remat=False, skip_nonfinite: bool = False):
     """A medium FLAIR finetune model (seed 0), its optimizer, state and step."""
     from maestro_tpu_torch.conf import MaskConfig, ModelConfig, OptFinetuneConfig
@@ -1176,18 +1173,10 @@ def _finetune(datasets, batch_size: int, remat=False, skip_nonfinite: bool = Fal
 
 
 def _count_syncs(fn) -> int:
-    """Host syncs that ``fn`` makes, by torch's sync debug mode."""
-    import warnings
-
+    """Host syncs that ``fn`` makes on this thread, by torch's sync debug
+    mode (``_count_main_thread_syncs``: its one-time notice is not a sync)."""
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as seen:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in seen)
+    return _count_main_thread_syncs(fn)[1]
 
 
 def skip_nonfinite_phase(datasets) -> dict:
@@ -1217,7 +1206,7 @@ def skip_nonfinite_phase(datasets) -> dict:
                    for k in ("exp_avg", "exp_avg_sq")]
                 + [tx.guard.updates.clone(), tx.guard.bias_step.clone()])
 
-    _zero_supervised_counts()
+    zero_counts()
     state, metrics, logs = step(state, batch, metrics)
     before = snapshot()
     state, metrics, logs_bad = step(state, bad, metrics)
@@ -1226,7 +1215,7 @@ def skip_nonfinite_phase(datasets) -> dict:
     notfinite = (int(tx.guard.notfinite_count), int(tx.guard.total_notfinite))
     state, metrics, logs = step(state, batch, metrics)
     after_good = snapshot()
-    launches = dict(zip(SUP_COUNTERS, _supervised_counts()))
+    launches = dict(zip(SUP_COUNTERS, kernel_counts()))
     applied = any(not torch.equal(a, b) for a, b in zip(after_bad[:len(trained)],
                                                         after_good[:len(trained)]))
     updates = int(tx.guard.updates)
@@ -1272,12 +1261,12 @@ def remat_phase(datasets) -> dict:
         metrics = init_metric_states(model.head_specs)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _zero_supervised_counts()
+        zero_counts()
         losses = []
         for _ in range(WARMUP_STEPS):
             state, metrics, logs = step(state, batch, metrics)
             losses.append(logs["loss_pred"].item())
-        totals = _supervised_counts()
+        totals = kernel_counts()[:len(SUP_COUNTERS)]
         launches = [n // WARMUP_STEPS for n in totals]
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         for i in range(5):
@@ -1301,6 +1290,518 @@ def remat_phase(datasets) -> dict:
     if not all(e <= STEP_LOSS_RTOL for e in rel):
         raise AssertionError(f"remat dots and none disagree: {rel}")
     return rows["dots"]["launches"]
+
+
+# ---- the experiment path: maestro_tpu_torch.main -> run_experiment over tiles on disk
+EXP_TILES = 32  # FLAIR-HUB tiles, listed in the train, val and test CSVs
+EXP_BATCH = 16
+EXP_EPOCHS = {"pretrain": 1, "probe": 3, "finetune": 2}
+EXP_LOG_EVERY = 2  # trainer.log_every_steps: a loss read back every 2 steps
+EXP_POOL = 32 // 2  # pool calls per pass over a batch: ref grid rows / seg_chunk_rows (2)
+KERNEL_COUNTERS = ("attention_fwd", "attention_bwd", "pool_fwd", "pool_bwd", "loss_fwd",
+                   "loss_bwd")
+# kernel launches per batch of each pass of the run, by (pass, phase)
+EXP_PER_BATCH = {
+    ("train", "pretrain"): (ATTN_PER_STEP, ATTN_PER_STEP, 0, 0, LOSS_FWD_PER_STEP,
+                            LOSS_BWD_PER_STEP),
+    ("train", "probe"): (39, 0, EXP_POOL, EXP_POOL, 0, 0),
+    ("train", "finetune"): (39, 39, EXP_POOL, EXP_POOL, 0, 0),
+    # the pretrain eval step takes the pixel-space loss, as the JAX package's does
+    ("eval", "pretrain"): (ATTN_PER_STEP, 0, 0, 0, 0, 0),
+    ("eval", "probe"): (39, 0, EXP_POOL, 0, 0, 0),
+    ("eval", "finetune"): (39, 0, EXP_POOL, 0, 0, 0),
+    ("replay", "probe"): (0, 0, EXP_POOL, 0, 0, 0),  # heads only, off cached features
+    ("verify", "probe"): (39, 0, 0, 0, 0, 0),  # the first replay's batch-0 feature pass
+    ("viz", "pretrain"): (ATTN_PER_STEP, 0, 0, 0, 0, 0),
+    ("viz", "probe"): (39, 0, EXP_POOL, 0, 0, 0),
+    ("viz", "finetune"): (39, 0, EXP_POOL, 0, 0, 0),
+}
+# host syncs a train epoch makes besides the every-log_every_steps loss read:
+# the epoch's mean loss (and the confusion matrix of the cosia head)
+EXP_EPOCH_SYNCS = {"pretrain": 1, "probe": 2, "finetune": 2}
+REPLAY_RTOL, REPLAY_ATOL = 1e-3, 1e-4  # train/eval_cache.py verify_replay's
+
+
+def kernel_counts() -> tuple[int, ...]:
+    from maestro_tpu_torch.ops import attention, attn_pool, fused_loss
+    return (attention.launch_count, attention.bwd_launch_count, attn_pool.launch_count,
+            attn_pool.bwd_launch_count, fused_loss.fwd_launch_count, fused_loss.bwd_launch_count)
+
+
+def plain_counts() -> dict[str, int]:
+    from maestro_tpu_torch.ops import attention, attn_pool, fused_loss
+    return {"attention": attention.plain_count, "pool": attn_pool.plain_count,
+            "loss": fused_loss.plain_count}
+
+
+def zero_counts() -> None:
+    from maestro_tpu_torch.ops import attention, attn_pool, fused_loss
+    attention.launch_count = attention.bwd_launch_count = attention.plain_count = 0
+    attn_pool.launch_count = attn_pool.bwd_launch_count = attn_pool.plain_count = 0
+    fused_loss.fwd_launch_count = fused_loss.bwd_launch_count = fused_loss.plain_count = 0
+
+
+def write_flair_tiles(root, n: int, seed: int = 0) -> int:
+    """FLAIR-HUB tiles at full size in the layout of
+    tests/fixtures.py::write_flair_fixture (``.npy`` tiles, the CSV date
+    tables, train / val / test CSVs each listing every tile), written with
+    numpy and the csv module only; returns the bytes written."""
+    import csv
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mods = {
+        "AERIAL_RGBI": ((1, 4, 512, 512), np.uint8),
+        "DEM_ELEV": ((1, 2, 512, 512), np.float32),
+        "SENTINEL2_TS": ((20, 10, 10, 10), np.int16),
+        "SENTINEL2_MSK-SC": ((20, 1, 10, 10), np.uint8),
+        "SENTINEL1-ASC_TS": ((12, 2, 10, 10), np.float32),
+        "SENTINEL1-DESC_TS": ((12, 2, 10, 10), np.float32),
+        "AERIAL_LABEL-COSIA": ((1, 1, 512, 512), np.uint8),
+    }
+    patch_ids = [f"D01_Z{z}_p1" for z in range(n)]
+    nbytes = 0
+    for pid in patch_ids:
+        domain, area, pos = pid.split("_")
+        for flair, (shape, dtype) in mods.items():
+            d = root / f"{domain}_{flair}" / area
+            d.mkdir(parents=True, exist_ok=True)
+            if dtype == np.uint8:
+                arr = rng.integers(0, 20, shape).astype(dtype)
+            elif dtype == np.int16:
+                arr = rng.integers(0, 10000, shape).astype(dtype)
+            else:
+                arr = np.abs(rng.normal(1, 0.5, shape)).astype(dtype)
+            np.save(d / f"{domain}_{flair}_{area}_{pos}.npy", arr)
+            nbytes += arr.nbytes
+
+    def table(path, header, rows):
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(header)
+            w.writerows(rows)
+
+    def dates(k):
+        return json.dumps({str(i): int(f"2021{m:02d}{d:02d}") for i, (m, d) in enumerate(
+            zip(rng.integers(1, 13, k), rng.integers(1, 28, k)), start=1)})
+
+    mtd = root / "GLOBAL_ALL_MTD"
+    mtd.mkdir(parents=True, exist_ok=True)
+    for name in ("AERIAL", "SPOT"):
+        table(mtd / f"GLOBAL_{name}_MTD_DATES.csv", ["patch_id", "date"],
+              [[pid, "20210615"] for pid in patch_ids])
+    for name, k in (("SENTINEL2", 20), ("SENTINEL1-ASC", 12), ("SENTINEL1-DESC", 12)):
+        table(mtd / f"GLOBAL_{name}_MTD_DATES.csv", ["patch_id", "acquisition_dates"],
+              [["_".join(pid.split("_")[:2]) + "_x", dates(k)] for pid in patch_ids])
+    for split in ("train", "val", "test"):
+        table(root / f"{split}.csv", ["patch_id"], [[pid] for pid in patch_ids])
+    return nbytes
+
+
+class _Patches:
+    """Attribute replacements that are undone together."""
+
+    def __init__(self):
+        self._undo = []
+
+    def set(self, obj, name, value):
+        self._undo.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def undo(self):
+        while self._undo:
+            obj, name, value = self._undo.pop()
+            setattr(obj, name, value)
+
+
+def _count_main_thread_syncs(fn):
+    """(result of fn(), host syncs the calling thread made in it), by torch's
+    sync debug mode; its one-time 'prototype' notice is not a sync."""
+    import threading
+    import warnings
+
+    main, seen = threading.current_thread(), []
+    old = warnings.showwarning
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        text = str(message)
+        if (threading.current_thread() is main and "synchroniz" in text
+                and "prototype" not in text):
+            seen.append(text)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = old
+    return out, len(seen)
+
+
+def _payload_equal(got, want, where="") -> list[str]:
+    """Names of the tensors and counters that differ between two payloads."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            return [f"{where} keys"]
+        return [d for k in want for d in _payload_equal(got[k], want[k], f"{where}/{k}")]
+    if torch.is_tensor(want):
+        ok = (torch.is_tensor(got) and got.dtype == want.dtype and got.shape == want.shape
+              and torch.equal(got.to(want.device), want))
+        return [] if ok else [where]
+    return [] if got == want else [where]
+
+
+def experiment_phase(smi: str) -> dict:
+    """``maestro_tpu_torch.main.main`` over 32 FLAIR-HUB tiles written to a
+    temporary directory: MAE medium, group fusion, 3 trunk blocks, bf16,
+    EMA, pretrain 1 epoch, probe 3 (its val epochs 2 and 3 replayed from the
+    feature cache), finetune 2 (cosia monitor, test on the best checkpoint),
+    batch 16.  Checks every phase's results and files, the launches of each
+    kernel per pass against the launches a batch, no plain version run, the
+    cache's replay against an uncached probe run, a bit-identical restore of
+    the newest finetune checkpoint, and the host syncs of each train epoch.
+    Returns the launches of the run by kernel."""
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from maestro_tpu_torch import main as cli
+    from maestro_tpu_torch.conf import DataConfig
+    from maestro_tpu_torch.conf import OptFinetuneConfig, OptPretrainConfig, OptProbeConfig
+    from maestro_tpu_torch.data.loader import make_loader
+    from maestro_tpu_torch.train import checkpoint as ckpt
+    from maestro_tpu_torch.train import runtime as TR
+    from maestro_tpu_torch.train.eval_cache import ProbeEvalCache
+    from maestro_tpu_torch.train.optim import make_optimizer
+    from maestro_tpu_torch.train.state import TrainState
+    from maestro_tpu_torch.train.steps import (init_metric_states, make_pretrain_step,
+                                               make_supervised_step)
+    from maestro_tpu_torch.utils.profiling import StepTimer, device_busy_ms, trace
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    tmp = Path(tempfile.mkdtemp(prefix="maestro_experiment_"))
+    try:
+        t0 = time.perf_counter()
+        data_bytes = write_flair_tiles(tmp / "flair", EXP_TILES)
+        emit({"experiment_data": {"tiles": EXP_TILES, "bytes": data_bytes,
+                                  "write_s": time.perf_counter() - t0}})
+        argv = [f"datasets.root_dir={tmp / 'flair'}", "datasets.name_dataset=flair",
+                "datasets.flair.rel_dir=", "model.model_size=medium", "model.fusion_mode=group",
+                "model.inter_depth=3", "model.use_ema=true", "trainer.compute_dtype=bfloat16",
+                "trainer.input_dtype=auto", f"trainer.log_every_steps={EXP_LOG_EVERY}",
+                "data.loader=threads", "data.num_workers=8",
+                "opt_finetune.monitor=cosia/average_iou_val",
+                "run.logged_images_per_epoch=2", f"run.exp_dir={tmp / 'runs'}",
+                "run.exp_name=experiment"]
+        argv += [f"opt_{p}.{k}={v}" for p, n in EXP_EPOCHS.items()
+                 for k, v in (("epochs", n), ("batch_size", EXP_BATCH))]
+
+        # the loader alone: the pretrain train split, no device work, with the
+        # run's worker threads and with one
+        cfg0, datasets0 = cli.parse_cli(argv)
+        for workers in (1, cfg0.data.num_workers):
+            _, loader = make_loader(datasets0, DataConfig(num_workers=workers, loader="threads"),
+                                    "train", "pretrain", EXP_BATCH, seed=cfg0.run.seed)
+            t0 = time.perf_counter()
+            n_samples = sum(b["aerial"].shape[0] for b in loader)
+            loader_s = time.perf_counter() - t0
+            emit({"experiment_loader_alone": {"samples": n_samples, "seconds": loader_s,
+                                              "samples_per_s": n_samples / loader_s,
+                                              "workers": workers}})
+
+        # ---- instrumentation: launches by pass, step starts, syncs, saves
+        passes, phase_rows, saver_rows, holder = [], {}, [], {}
+        state = {"device_batches": 0, "epoch": {}}
+        patches = _Patches()
+        orig_init = TR.Experiment.__init__
+
+        def init(self, *a, **k):
+            orig_init(self, *a, **k)
+            holder["exp"] = self
+
+        def counted(kind, phase, fn):
+            before, batches = kernel_counts(), state["device_batches"]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            row = {"pass": kind, "phase": phase, "seconds": time.perf_counter() - t,
+                   "batches": state["device_batches"] - batches,
+                   "launches": [a - b for a, b in zip(kernel_counts(), before)]}
+            passes.append(row)
+            return out, row
+
+        orig_device_batch = TR.Experiment._device_batch
+
+        def device_batch(self, np_batch):
+            state["device_batches"] += 1
+            return orig_device_batch(self, np_batch)
+
+        orig_fit = TR.Experiment.fit_phase
+
+        def fit_phase(self, phase, opt, *a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state["epoch"][phase] = 0
+            t = time.perf_counter()
+            result = orig_fit(self, phase, opt, *a, **k)
+            torch.cuda.synchronize()
+            phase_rows[phase] = {"seconds": time.perf_counter() - t,
+                                 "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                                 "eval_cache": self._last_eval_cache}
+            return result
+
+        orig_train = TR.Experiment._run_train_epoch
+
+        def run_train_epoch(self, phase, st, train_step, loader, seed):
+            starts = []
+
+            def timed_step(*args):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                starts.append(ev)
+                return train_step(*args)
+
+            epoch = state["epoch"][phase]
+            state["epoch"][phase] += 1
+            profiled = epoch == EXP_EPOCHS[phase] - 1  # the phase's last train epoch
+            with trace() if profiled else contextlib.nullcontext() as prof:
+                (out, syncs), row = counted("train", phase, lambda: _count_main_thread_syncs(
+                    lambda: orig_train(self, phase, st, timed_step, loader, seed)))
+            gaps = [a.elapsed_time(b) for a, b in zip(starts, starts[1:])]
+            row.update(epoch=epoch, host_syncs=syncs, step_ms_starts=gaps,
+                       step_ms_median=statistics.median(gaps) if gaps else None,
+                       sync_limit=math.ceil(len(starts) / EXP_LOG_EVERY) + EXP_EPOCH_SYNCS[phase])
+            if prof is not None:
+                busy = device_busy_ms(prof)
+                row.update(profiled=True, device_busy_ms=busy,
+                           device_idle_share=1.0 - busy / (row["seconds"] * 1e3))
+            return out
+
+        orig_eval = TR.Experiment._run_eval_epoch
+
+        def run_eval_epoch(self, phase, st, eval_step, loader, seed, cache=None):
+            replay = cache is not None and cache.ready
+            out, row = counted("replay" if replay else "eval", phase,
+                               lambda: orig_eval(self, phase, st, eval_step, loader, seed,
+                                                 cache=cache))
+            row.update(cached=cache is not None, replayed=bool(replay and cache.ready))
+            return out
+
+        orig_verify = ProbeEvalCache.verify_replay
+
+        def verify_replay(self, loader, device_batch_fn):
+            out, row = counted("verify", "probe",
+                               lambda: orig_verify(self, loader, device_batch_fn))
+            row["agreed"] = out
+            return out
+
+        orig_viz = TR.Experiment._log_images
+
+        def log_images(self, phase, epoch, st, np_batch):
+            counted("viz", phase, lambda: orig_viz(self, phase, epoch, st, np_batch))
+
+        orig_save, orig_close = ckpt.AsyncSaver.save, ckpt.AsyncSaver.close
+
+        def save(self, ckpt_dir, phase, epoch, st, extra=None):
+            if phase == "finetune" and epoch == EXP_EPOCHS["finetune"] - 1:
+                torch.cuda.synchronize()  # the state as handed over, copied on the card
+                holder["reference"] = ckpt._map_tensors(
+                    ckpt._payload(st), lambda _, t: t.detach().clone())
+            return orig_save(self, ckpt_dir, phase, epoch, st, extra)
+
+        def close(self):
+            orig_close(self)
+            saver_rows.append({"blocked_s": list(self.blocked_s),
+                               "waited_s": list(self.waited_s),
+                               "background_s": list(self.background_s),
+                               "end_wait_s": list(self.end_wait_s)})
+
+        for obj, name, fn in ((TR.Experiment, "__init__", init),
+                              (TR.Experiment, "_device_batch", device_batch),
+                              (TR.Experiment, "fit_phase", fit_phase),
+                              (TR.Experiment, "_run_train_epoch", run_train_epoch),
+                              (TR.Experiment, "_run_eval_epoch", run_eval_epoch),
+                              (ProbeEvalCache, "verify_replay", verify_replay),
+                              (TR.Experiment, "_log_images", log_images),
+                              (ckpt.AsyncSaver, "save", save),
+                              (ckpt.AsyncSaver, "close", close)):
+            patches.set(obj, name, fn)
+
+        # ---- the main path: counts from 0 just before, read just after
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            results = cli.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            totals = dict(zip(KERNEL_COUNTERS, kernel_counts()))
+            plain = plain_counts()
+        finally:
+            patches.undo()
+        exp = holder["exp"]
+        emit({"experiment_run": {"seconds": run_s, "launches": totals, "plain_calls": plain,
+                                 "passes": len(passes)}})
+
+        # check 1: three phases, finite losses every epoch, checkpoints and files
+        problems = []
+        if list(results) != list(EXP_EPOCHS):
+            problems.append(f"phases {list(results)}")
+        for phase, res in results.items():
+            key = "train/loss_rec" if phase == "pretrain" else "train/loss_pred"
+            vals = [e.get(key) for e in res.history]
+            if len(vals) != EXP_EPOCHS[phase] or not all(
+                    v is not None and math.isfinite(v) for v in vals):
+                problems.append(f"{phase} losses {vals}")
+            if ckpt.find_latest_checkpoint(exp.workdir / "checkpoints", phase) is None:
+                problems.append(f"no {phase} checkpoint")
+        records = (exp.workdir / "metrics.jsonl").read_text().splitlines()
+        cms = sorted(p.name for p in (exp.workdir / "cm").glob("*.npy"))
+        n_cm = EXP_EPOCHS["probe"] + EXP_EPOCHS["finetune"] + 2  # val every epoch, test once
+        if len(records) != sum(EXP_EPOCHS.values()) or len(cms) != n_cm:
+            problems.append(f"{len(records)} metrics.jsonl records, {len(cms)} cm dumps")
+
+        # check 2: launches by pass = batches x launches a batch; no plain version.
+        # A replay pass holds the verify pass it runs first: take that out of it
+        for i, row in enumerate(passes):
+            if row["pass"] == "verify":
+                outer = next(r for r in passes[i + 1:] if r["pass"] == "replay")
+                outer["launches"] = [a - b for a, b in zip(outer["launches"], row["launches"])]
+                outer["batches"] -= row["batches"]
+        by_kernel = dict.fromkeys(KERNEL_COUNTERS, 0)
+        for row in passes:
+            row["expected"] = [row["batches"] * k
+                               for k in EXP_PER_BATCH[(row["pass"], row["phase"])]]
+            for name, got in zip(KERNEL_COUNTERS, row["launches"]):
+                by_kernel[name] += got
+        emit({"experiment_passes": [
+            {k: v for k, v in r.items() if k != "step_ms_starts"} for r in passes]})
+        wrong = [(r["pass"], r["phase"], r["launches"], r["expected"]) for r in passes
+                 if r["launches"] != r["expected"]]
+        if wrong:
+            problems.append(f"launches by pass differ: {wrong}")
+        if by_kernel != totals:
+            problems.append(f"passes add to {by_kernel}, the counters read {totals}")
+        if 0 in totals.values():
+            problems.append(f"a kernel was never launched: {totals}")
+        n_viz = sum(1 for r in passes if r["pass"] == "viz")
+        if n_viz != sum(EXP_EPOCHS.values()):  # images every epoch, none failed
+            problems.append(f"{n_viz} image-logging passes completed")
+        if any(plain.values()):
+            problems.append(f"plain versions ran on the card: {plain}")
+
+        # check 3: the probe cache sealed and replayed; an uncached probe run
+        # from the same pretrain checkpoint gives the same val metrics
+        cache = phase_rows["probe"]["eval_cache"]
+        if cache is None or not cache.ready or cache.disabled or cache.hit_epochs < 1:
+            problems.append(f"eval cache not replayed: {cache and (cache.ready, cache.disabled, cache.hit_epochs)}")
+        pre_ckpt = ckpt.find_latest_checkpoint(exp.workdir / "checkpoints", "pretrain")
+        uncached = cli.main([a for a in argv if not a.startswith(("opt_pretrain.epochs",
+                                                                  "opt_finetune.epochs"))]
+                            + ["opt_pretrain.epochs=0", "opt_finetune.epochs=0",
+                               f"run.load_ckpt_path={pre_ckpt}",
+                               "trainer.probe_eval_cache=false", "run.exp_name=uncached"])
+        worst = 0.0
+        for ec, eu in zip(results["probe"].history, uncached["probe"].history):
+            for k, v in eu.items():
+                if k.startswith("val/"):
+                    a, b = ec[k], v
+                    if not np.allclose(a, b, rtol=REPLAY_RTOL, atol=REPLAY_ATOL):
+                        problems.append(f"probe epoch {eu['epoch']} {k}: cached {a} uncached {b}")
+                    worst = max(worst, abs(a - b) / (REPLAY_ATOL + REPLAY_RTOL * abs(b)))
+        if len(uncached["probe"].history) != EXP_EPOCHS["probe"]:
+            problems.append("the uncached probe run did not finish")
+        evals = [r for r in passes if r["phase"] == "probe" and r["pass"] in ("eval", "replay")]
+        emit({"experiment_eval_cache": {
+            "hit_epochs": cache and cache.hit_epochs, "entries": cache and len(cache.entries),
+            "device_bytes": cache and cache.device_nbytes, "disabled": cache and cache.disabled,
+            "val_seconds_by_epoch": [r["seconds"] for r in evals[:EXP_EPOCHS["probe"]]],
+            "first_val_vs_replay": (evals[0]["seconds"] / evals[-2]["seconds"]
+                                    if len(evals) > 2 else None),
+            "uncached_max_err_over_tolerance": worst}})
+
+        # check 4: the newest finetune checkpoint restores bit-identically
+        newest = ckpt.find_latest_checkpoint(exp.workdir / "checkpoints", "finetune")
+        model = exp.model
+        tx = make_optimizer(OptFinetuneConfig(batch_size=EXP_BATCH), "finetune", 1000, model)
+        fresh = TrainState.create(model, tx, use_ema=True)
+        ckpt.restore_state(newest, fresh)
+        diff = _payload_equal(ckpt._payload(fresh), holder["reference"])
+        if diff:
+            problems.append(f"restored checkpoint differs at {diff[:6]}")
+        compared = []
+        ckpt._map_tensors(holder["reference"], lambda key, _: compared.append(key))
+        emit({"experiment_restore": {"checkpoint": newest.name, "differs": diff[:6],
+                                     "tensors": len(compared)}})
+        del holder["reference"], fresh, tx
+
+        # check 5 and the per-phase times: train step inside an epoch against
+        # one staged-once batch at the same batch size
+        opts = {"pretrain": OptPretrainConfig, "probe": OptProbeConfig,
+                "finetune": OptFinetuneConfig}
+        staged = {}
+        for phase in EXP_EPOCHS:
+            exp._staging_phase = phase
+            batch = exp._device_batch(make_synthetic_batch(exp.datasets.dataset, EXP_BATCH,
+                                                           seed=3))
+            tx = make_optimizer(opts[phase](batch_size=EXP_BATCH), phase, 1000, model)
+            st = TrainState.create(model, tx)
+            if phase == "pretrain":
+                step = make_pretrain_step(model, exp.plan, tx)
+                run = lambda: step(st, batch, 0)  # noqa: E731
+            else:
+                metrics = init_metric_states(model.head_specs)
+                step = make_supervised_step(model, phase, tx)
+                run = lambda: step(st, batch, metrics)  # noqa: E731
+            timer = StepTimer(warmup=WARMUP_STEPS)
+            for _ in range(WARMUP_STEPS + 5):
+                timer.start()
+                run()
+                timer.stop()
+            staged[phase] = timer.mean_step_s * 1e3
+            del batch, tx, st, step, run
+        for phase in EXP_EPOCHS:
+            trains = [r for r in passes if r["pass"] == "train" and r["phase"] == phase]
+            gaps = [g for r in trains for g in r["step_ms_starts"]]
+            prof = next(r for r in trains if r.get("profiled"))
+            row = {"phase": phase, "batch": EXP_BATCH, "epochs": EXP_EPOCHS[phase],
+                   "epoch_s": [e["time_s"] for e in results[phase].history],
+                   "train_epoch_s": [r["seconds"] for r in trains],
+                   "train_step_ms_in_epoch_median": statistics.median(gaps) if gaps else None,
+                   "train_step_ms_in_epoch_all": gaps,
+                   "train_step_ms_staged_once": staged[phase],
+                   "device_busy_ms_profiled_epoch": prof["device_busy_ms"],
+                   "device_idle_share_profiled_epoch": prof["device_idle_share"],
+                   "profiled_epoch": prof["epoch"],
+                   "peak_memory_bytes": phase_rows[phase]["peak_memory_bytes"],
+                   "phase_s": phase_rows[phase]["seconds"],
+                   "host_syncs_by_epoch": [r["host_syncs"] for r in trains],
+                   "host_sync_limit_by_epoch": [r["sync_limit"] for r in trains]}
+            emit({"experiment_phase": row, "card": smi})
+            over = [(r["epoch"], r["host_syncs"], r["sync_limit"]) for r in trains
+                    if r["host_syncs"] > r["sync_limit"]]
+            if over:
+                problems.append(f"{phase} train epochs sync too often: {over}")
+        for phase, row in zip(EXP_EPOCHS, saver_rows):
+            emit({"experiment_checkpoint_saves": {"phase": phase, **row}})
+        emit({"experiment_results": {
+            phase: {"best_epoch": r.best_epoch, "best_monitor": r.best_monitor,
+                    "test": r.test_metrics} for phase, r in results.items()}})
+        if problems:
+            raise AssertionError("experiment phase: " + "; ".join(problems))
+        del exp, model
+        holder.clear()
+        torch.cuda.empty_cache()
+        return totals
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 
 def main() -> None:
@@ -1423,6 +1924,9 @@ def main() -> None:
     pe = pretrain_eval_phase(datasets)
     sk = skip_nonfinite_phase(datasets)
     rd = remat_phase(datasets)
+
+    # ---- 5e. the experiment path: the CLI over tiles on disk
+    ex = experiment_phase(smi)
 
     # ---- 6. kernel times at the main paths' shapes, back to back
     # (inputs stay warm in L2, as they are right after the qkv projection)
@@ -1589,12 +2093,13 @@ def main() -> None:
     tl = train["launches"]
     # the launches of the paths this slice added, by counter
     extra = lambda key: {"pretrain_eval": pe.get(key, 0), "skip_nonfinite": sk.get(key, 0),  # noqa: E731
-                         "finetune_remat_dots": rd.get(key, 0)}
-    loss_entry = lambda direction, fn_name, line, launches, err, per_step, times: {  # noqa: E731
+                         "finetune_remat_dots": rd.get(key, 0), "experiment": ex[key]}
+    loss_entry = lambda direction, fn_name, line, key, err, per_step, times: {  # noqa: E731
         "name": fn_name, "route": "cuda", "source": "maestro_tpu_torch/csrc/fused_loss.cu",
         "replaces": f"maestro_tpu/ops/fused_loss.py:{line}",
-        "launches": launches, "launches_per_step": per_step,
-        "launches_by_path": {"serve": 0, "train": launches, "finetune": 0, "probe": 0},
+        "launches": tl[key] + ex[key], "launches_per_step": per_step,
+        "launches_by_path": {"serve": 0, "train": tl[key], "finetune": 0, "probe": 0,
+                             "experiment": ex[key]},
         "max_abs_err": err, **loss_totals[direction],
         "bound_by": max(loss_kinds[direction], key=loss_kinds[direction].get),
         "bound_share": loss_totals[direction]["bound_ms"] / loss_totals[direction]["ms"],
@@ -1645,12 +2150,12 @@ def main() -> None:
                       "kernel, the dq convert); library = "
                       "the backward of scaled_dot_product_attention",
          "per_shape": bwd_rows, "finetune_full_length_shapes": ft_bwd_rows},
-        loss_entry("fwd", "masked_patchnorm_sums_fwd_multi", 53, tl["loss_fwd"], loss_sum_err,
+        loss_entry("fwd", "masked_patchnorm_sums_fwd_multi", 53, "loss_fwd", loss_sum_err,
                    LOSS_FWD_PER_STEP,
                    f"one grouped launch over the five modalities of a batch-{train_batch} train "
                    "step (ms), bf16 staging, l1; ms_sum_alone and per_shape: each modality "
                    "alone (a grouped launch of one)"),
-        loss_entry("bwd", "masked_patchnorm_sums_bwd", 76, tl["loss_bwd"], loss_grad_err,
+        loss_entry("bwd", "masked_patchnorm_sums_bwd", 76, "loss_bwd", loss_grad_err,
                    LOSS_BWD_PER_STEP,
                    f"sum over the {LOSS_BWD_PER_STEP} launches of one batch-{train_batch} train "
                    "step (one per modality), bf16 staging, l1"),

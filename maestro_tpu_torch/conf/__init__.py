@@ -1,6 +1,7 @@
 """Configuration layer: typed dataclasses + derived static shape state."""
 
 from maestro_tpu_torch.conf.core import (
+    DataConfig,
     ExperimentConfig,
     MaskConfig,
     ModelConfig,
@@ -8,6 +9,7 @@ from maestro_tpu_torch.conf.core import (
     OptFinetuneConfig,
     OptPretrainConfig,
     OptProbeConfig,
+    RunConfig,
     TrainerConfig,
 )
 from maestro_tpu_torch.conf.dataset.base import (
@@ -25,6 +27,7 @@ from maestro_tpu_torch.conf.dataset.treesatai_ts import TreeSatAITSConfig
 from maestro_tpu_torch.conf.datasets import DatasetsConfig
 
 __all__ = [
+    "DataConfig",
     "DatasetConfig",
     "DatasetsConfig",
     "ExperimentConfig",
@@ -39,6 +42,7 @@ __all__ = [
     "PASTISHDConfig",
     "PatchSizeConfig",
     "RasterConfig",
+    "RunConfig",
     "S2NAIPConfig",
     "TargetConfig",
     "TargetRasterConfig",

@@ -1,0 +1,193 @@
+"""Host batch loader: parallel sample reads + numpy collation + prefetch.
+
+Replaces the reference's torch DataLoader (12 worker processes,
+reference maestro/train/data.py).  Raster decoding is numpy and releases
+the GIL inside h5py/imageio/numpy reads, so a thread pool + prefetch queue
+overlaps reads with the device.  The JAX package's grain pipeline is not
+ported: grain imports JAX (``resolve_loader``).
+All splits iterate shuffled with drop_last (reference data.py:38-44).
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+
+def collate(samples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
+    keys = samples[0].keys()
+    return {k: np.stack([s[k] for s in samples], axis=0) for k in keys}
+
+
+class EOBatchLoader:
+    """Iterable over collated numpy batches with background prefetch."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = True,
+        drop_last: bool = True,
+        num_workers: int = 8,
+        prefetch: int = 2,
+        seed: int = 0,
+    ) -> None:
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.num_workers = max(num_workers, 1)
+        self.prefetch = prefetch
+        self.seed = seed
+        # per-epoch order is a pure function of (seed, epoch) so a restarted
+        # process reproduces it exactly (mid-epoch preemption resume); the
+        # runtime drives set_epoch, standalone use auto-increments per pass
+        self.epoch = 0
+        self.skip_batches = 0  # consumed by the next __iter__ (fast-forward)
+        self._auto_epoch = True
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+        self._auto_epoch = False
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batches(self) -> list[np.ndarray]:
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng([self.seed, self.epoch]).shuffle(order)
+        nb = len(self)
+        return [
+            order[i * self.batch_size : (i + 1) * self.batch_size]
+            for i in range(nb)
+        ]
+
+    def __iter__(self):
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(self.epoch)  # per-(epoch, idx) sample rng
+        batches = self._batches()
+        if self.skip_batches:
+            batches = batches[self.skip_batches :]  # no decode for skipped
+            self.skip_batches = 0
+        if self._auto_epoch:
+            self.epoch += 1
+        out: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """Blocking put that gives up once the consumer is gone — a
+            producer parked in ``Queue.put`` on a full prefetch queue would
+            otherwise leak its thread (and the pool) on early break."""
+            while not stop.is_set():
+                try:
+                    out.put(item, timeout=0.2)
+                except queue.Full:
+                    continue
+                return True
+            return False
+
+        def produce() -> None:
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for idxs in batches:
+                        if stop.is_set():
+                            return
+                        batch = collate(
+                            list(pool.map(self.dataset.__getitem__, idxs)),
+                        )
+                        if not put(batch):
+                            return
+                put(None)
+            except BaseException as exc:  # noqa: BLE001 - a decode error must
+                put(exc)  # reach the consumer, not hang it on out.get()
+
+        worker = threading.Thread(target=produce, daemon=True)
+        worker.start()
+        try:
+            while True:
+                batch = out.get()
+                if batch is None:
+                    return
+                if isinstance(batch, BaseException):
+                    raise batch
+                yield batch
+        finally:
+            stop.set()
+
+
+def resolve_loader(data_cfg) -> str:
+    """Resolve ``data_cfg.loader``: "auto" is the thread pool.
+
+    The JAX package's "auto" picks its grain pipeline on a host with few
+    cores; grain imports JAX, which the port never loads, so "grain" raises
+    until a multiprocess loader without JAX is ported (ROADMAP.md queue 1
+    item 9).
+    """
+    if data_cfg.loader == "grain":
+        msg = ("data.loader=grain is not ported (grain imports JAX); a multiprocess "
+               "loader without JAX is ROADMAP.md queue 1 item 9. Use data.loader=threads.")
+        raise NotImplementedError(msg)
+    if data_cfg.loader not in ("auto", "threads"):
+        msg = f"unknown data.loader={data_cfg.loader!r} (auto, threads or grain)"
+        raise ValueError(msg)
+    return "threads"
+
+
+def pin_loader(data_cfg) -> str:
+    """Resolve ``data_cfg.loader`` once for the run and write the concrete
+    value back, so ``config_resolved.json`` and checkpoint meta record it (an
+    interrupted run must resume under the same loader; fit_phase refuses
+    otherwise)."""
+    data_cfg.loader = resolve_loader(data_cfg)
+    return data_cfg.loader
+
+
+def make_loader(
+    datasets_cfg,
+    data_cfg,
+    stage: str,
+    ssl_phase: str,
+    batch_size: int,
+    seed: int = 0,
+):
+    """Build (dataset, loader) for one (stage, phase), mirroring SSLDataModule.
+
+    ``data_cfg.loader`` must resolve to the thread pool (``resolve_loader``).
+    """
+    from maestro_tpu_torch.data.datasets import DATASET_CLASSES
+
+    ds_cls = DATASET_CLASSES[datasets_cfg.name_dataset]
+    root = (
+        f"{datasets_cfg.root_dir}/{datasets_cfg.dataset.rel_dir}"
+        if datasets_cfg.dataset.rel_dir
+        else datasets_cfg.root_dir
+    )
+    dataset = ds_cls(
+        datasets_cfg.dataset,
+        root,
+        stage,
+        use_transform=data_cfg.use_transform and stage == "train",
+        random_dates=data_cfg.random_dates,
+        random_crop=data_cfg.random_crop,
+        ssl_phase=ssl_phase,
+        seed=seed,
+    )
+    resolve_loader(data_cfg)
+    loader = EOBatchLoader(
+        dataset,
+        batch_size=batch_size,
+        shuffle=True,
+        drop_last=True,
+        num_workers=data_cfg.num_workers,
+        prefetch=data_cfg.prefetch,
+        seed=seed,
+    )
+    return dataset, loader

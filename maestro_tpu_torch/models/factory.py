@@ -25,7 +25,8 @@ def build_experiment_model(datasets, cfg: ExperimentConfig, dtype=None, *,
             else torch.float32
         )
     if cfg.model.model in BASELINE_MODELS:
-        msg = f"baseline adapter {cfg.model.model!r} is not ported yet."
+        msg = (f"baseline adapter {cfg.model.model!r} is not ported yet "
+               "(ROADMAP.md queue 1 item 5).")
         raise NotImplementedError(msg)
     model, plan = build_model(
         datasets, cfg.mask, cfg.model, dtype=dtype, device=device,

@@ -42,6 +42,7 @@ SUPPORTED_HEAD_DIMS = (32, 64, 96, 128)
 
 launch_count = 0  # forward: incremented once per flash_attention_fwd launch, nowhere else
 bwd_launch_count = 0  # backward: once per flash_attention_bwd call (its three launches)
+plain_count = 0  # calls of mha_blhd_plain, on any device: what a run on the card keeps at 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 DQ_TILE = 64  # queries per tile of the backward kernel's dQ scratch
@@ -57,6 +58,8 @@ def mha_blhd_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version: fp32 scores and softmax, P rounded to V's dtype
     before P·V (as the JAX package's einsum tier, ops/attention.py:51-56)."""
+    global plain_count
+    plain_count += 1
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     attn = torch.softmax(logits * sm_scale, dim=-1).to(v.dtype)
     if v.dtype == torch.float32:

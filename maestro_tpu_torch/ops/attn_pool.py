@@ -56,6 +56,7 @@ MAX_HEADS = 8  # csrc/pool_common.cuh kMaxHeads
 
 launch_count = 0  # once per forward call (its three launches), nowhere else
 bwd_launch_count = 0  # once per backward call (its six launches), nowhere else
+plain_count = 0  # calls of either plain version, on any device: a run on the card keeps it 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _libs: dict[str, ctypes.CDLL] = {}
@@ -75,6 +76,8 @@ def attentive_pool_plain(
     fp32 everywhere except that LN(x) and ``w_kv`` are rounded to ``x``'s
     dtype as operands of the kv projection (accumulated in fp32).
     """
+    global plain_count
+    plain_count += 1
     b, d, l, e = x.shape
     dh = e // heads
     xf = x.float()
@@ -122,6 +125,8 @@ def attentive_pool_bwd_plain(
     rounded to x's dtype, ``[dk, dv]`` included; everything else is fp32.
     ``dx`` is in x's dtype, the parameter gradients fp32.
     """
+    global plain_count
+    plain_count += 1
     b, d, l, e = x.shape
     dh = e // heads
     sm_scale = dh**-0.5

@@ -36,6 +36,7 @@ MAX_MODALITIES = 8  # csrc/fused_loss.cu kMaxMods
 
 fwd_launch_count = 0  # once per masked_patchnorm_sums_fwd_multi launch (all modalities)
 bwd_launch_count = 0  # once per masked_patchnorm_sums_bwd launch (one modality)
+plain_count = 0  # calls of either plain version, on any device: a run on the card keeps it 0
 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _lib = None
@@ -56,6 +57,8 @@ def _norm_diffs(t: torch.Tensor, r: torch.Tensor, norm_slices) -> list[torch.Ten
 
 def masked_patchnorm_sums_plain_fwd(t, r, m, norm_slices, square: bool):
     """Plain version of the forward: ``(sum_err, count)`` as fp32 scalars."""
+    global plain_count
+    plain_count += 1
     diffs = _norm_diffs(t, r, norm_slices)
     errs = [d * d if square else d.abs() for d in diffs]
     err = torch.cat(errs, dim=1) if len(errs) > 1 else errs[0]
@@ -65,6 +68,8 @@ def masked_patchnorm_sums_plain_fwd(t, r, m, norm_slices, square: bool):
 
 def masked_patchnorm_sums_plain_bwd(t, r, m, g, norm_slices, square: bool):
     """Plain version of the backward: ``d_rec`` in r's dtype."""
+    global plain_count
+    plain_count += 1
     parts = [-2.0 * d if square else -torch.sign(d) for d in _norm_diffs(t, r, norm_slices)]
     d = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     return (g * d * m.float()).to(r.dtype)
