@@ -2,12 +2,15 @@
 
     python3 chip_smoke.py            # what the checks need
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of requests and steps
+    python3 chip_smoke.py --loader-e2e [threads,grain,...]  # only the CLI at 20 batches a
+                                     # pass under each loader named, each in its own process
 
 Builds the hand-written CUDA kernels from ``maestro_tpu_torch/csrc`` (and
 reports the attention and pool kernels' registers, shared memory and spills
 from the ``ptxas`` log), holds each against its plain PyTorch version on the card (the
 attention kernels also at one row past a 128-row tile for every head dim, at
-the full-length trunk at batch 1, and twice on the same inputs: dk and dv
+the full-length trunk at batch 1, at the baseline adapters' lengths and heads,
+and twice on the same inputs: dk and dv
 bit-identical, dq within 1 bf16 ulp of max(|dq|, rms(dq)); the pool
 backward twice as well: dx and the parameter gradients bit-identical), then
 drives the port's main paths with seeded random weights and inputs (MAE
@@ -38,9 +41,17 @@ parameters):
   sync to a step (``torch.cuda.set_sync_debug_mode``);
 * finetune steps at batch 32 with ``remat="dots"`` and with none: step time,
   peak memory, and the two held together by their first losses;
+* the baseline adapters — DINOv2 large, DOFA base, CROMA base (late and
+  inter), SatMAE large and Prithvi large v2 on PASTIS-HD synthetic batches:
+  three finetune and three probe steps at batch 8 through the kernels and
+  through the plain versions from the same weights (losses, step-1
+  gradients of all trained parameters and of the attention weights alone,
+  frozen roles, launches a step against a table; DINOv2's LayerScale drawn
+  near 1 so that attention reaches the loss), then timed steps at batch 32;
 * the experiment path — ``maestro_tpu_torch.main.main`` (the CLI) over 32
   FLAIR-HUB tiles written to a temporary directory (``.npy`` tiles, CSV
-  tables), batch 16, EMA, pretrain 1 epoch, probe 3 (val epochs 2 and 3
+  tables), batch 16, ``data.loader=auto`` (worker processes on an 8-core
+  host), EMA, pretrain 1 epoch, probe 3 (val epochs 2 and 3
   replayed from the frozen-trunk feature cache), finetune 2 (cosia monitor,
   test on the best checkpoint): every phase's losses, checkpoints and files;
   each kernel's launches per pass (train, eval, replay, the cache's first-
@@ -50,7 +61,12 @@ parameters):
   restored bit-identically; the host syncs of every train epoch; and per
   phase the epoch and in-epoch step times against a staged-once step at the
   same batch, the device's idle share over a train epoch, peak memory, the
-  loader alone, and the checkpoint saves' blocking and background times.
+  loader alone (threads and processes), the host's cast and pinned copy
+  alone, and the checkpoint saves' blocking and background times;
+* a baseline through the CLI — ``model.model=dinov2 model.model_size=large
+  model.fusion_mode=shared`` over the same tiles (aerial 448 px, S2 and S1
+  28 px), batch 8, probe 1 epoch and finetune 1: each kernel's launches per
+  pass equal to batches x launches a batch, and no plain version run.
 
 The loss forward of a pretrain step is one grouped launch over the five
 modalities; it is also held against its plain version at the five FLAIR
@@ -69,10 +85,13 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -126,8 +145,16 @@ GRAD_COS_MIN = 0.99
 # 129: one row past a 128-row tile; every head dim is also checked at the ragged 50,
 # 129, 200, 400 and 1880
 ATTN_CHECK_LENGTHS = (50, 129, 200, 256, 400, 1024, 1880)
-ATTN_CHECK_HEADS = ((6, 128), (12, 64), (3, 64), (16, 32), (8, 96))
+# (16, 64): the baseline adapters' DINOv2 / SatMAE / Prithvi large heads
+ATTN_CHECK_HEADS = ((6, 128), (12, 64), (3, 64), (16, 32), (8, 96), (16, 64))
 ATTN_CHECK_BATCH = {(6, 128): 8}  # the serving path's heads at its largest batch; else 2
+# the forward lengths the baseline adapters run, at batch 8 and their heads (16 x 64
+# large, 12 x 64 base): 2 (PASTIS-HD S2 / S1 under DINOv2 and DOFA: one patch + CLS),
+# 5 (the CLI run's S2 / S1), 17 (SatMAE, Prithvi: 16 dates + CLS; the CLI run's
+# spot), 101 / 122 (PASTIS-HD spot under DOFA / DINOv2), 1025 / 1297 (the CLI run's
+# aerial and DEM)
+ADAPTER_FWD_LENGTHS = (2, 5, 17, 101, 122, 1025, 1297)
+ADAPTER_FWD_HEADS = ((16, 64), (12, 64))
 # the pretrain path's attention shapes at batch 8 (kept tokens 50..470 in the
 # encoders and the trunk, full lengths in the decoders), then the other head
 # dims, a length past 1536 and the full-length trunk of the supervised steps
@@ -139,6 +166,9 @@ BWD_CHECK_SHAPES = (
     # one row past a tile at every head dim, and the full-length trunk at batch 1
     + [(2, 129, h, d) for h, d in ((6, 128), (12, 64), (16, 32), (8, 96))]
     + [(1, 1880, 6, 128)]
+    # the baseline adapters at 16 x 64: PASTIS-HD spot under DINOv2 (121 patches
+    # + CLS), the FLAIR-HUB aerial at 448 px (1024 + CLS) and DEM at 512 px
+    + [(8, 122, 16, 64), (8, 1025, 16, 64), (2, 1297, 16, 64)]
 )
 # two backward calls on the same inputs: dk, dv bit-identical, dq (summed in an
 # order that varies) within 1 bf16 ulp, taken at max(|dq|, rms(dq)) as the other
@@ -152,14 +182,17 @@ POOL_KERNEL_NAMES = ("pool_u", "pool_fwd_rows", "pool_bwd_rows", "pool_mma", "po
                      "column_sums")
 POOL_SMEM_WIDTHS = (128, 384, 768, 1024)
 # head dims 96, 96, 16, 48, 128: every one attn_pool.cu is built for
+# and the DINOv2-large CLI run's seg head pool, E = 1024 (26 dates, 2 rows of the
+# 32-wide aerial grid, batch 8)
 POOL_CHECK_SHAPES = ((8, 26, 64, 768), (8, 26, 128, 768), (2, 2, 40, 128),
-                     (2, 5, 64, 384), (2, 3, 40, 1024))
+                     (2, 5, 64, 384), (2, 3, 40, 1024), (8, 26, 64, 1024))
 POOL_HEADS = 8
 # (shape, dx wanted): the finetune and probe pool shapes at batch 8, then head
 # dims 16, 48, 128 with 5 or 26 dates and ragged L, then dx skipped (probe)
 POOL_BWD_CHECK_CASES = (((8, 26, 128, 768), True), ((8, 26, 64, 768), True),
                         ((2, 5, 40, 128), True), ((2, 26, 33, 384), True),
-                        ((2, 5, 40, 1024), True), ((8, 26, 64, 768), False))
+                        ((2, 5, 40, 1024), True), ((8, 26, 64, 768), False),
+                        ((8, 26, 64, 1024), True), ((8, 26, 64, 1024), False))
 # two pool backward calls on the same inputs: dx and the four parameter
 # gradients bit-identical (every sum in a fixed order, no atomics)
 POOL_REPEAT_CASES = (((8, 26, 128, 768), True), ((8, 26, 64, 768), False))
@@ -455,6 +488,29 @@ def attention_fwd_checks(attention, gen) -> float:
                   "max_err_over_tolerance": worst[1], "max_abs_err": worst[0],
                   "worst_shape": worst[2], "lse_max_abs_err": lse_err,
                   "lse_abs_tolerance": LSE_ABS_TOL})
+    for dtype in (torch.bfloat16, torch.float32):
+        for l in ADAPTER_FWD_LENGTHS:
+            for h, d in ADAPTER_FWD_HEADS:
+                q, k, v = qkv_views(8, l, h, d, dtype, gen)
+                got = attention.mha_blhd(q, k, v, d**-0.5)
+                _, lse = attention._fwd(q, k, v, d**-0.5, with_lse=True)
+                torch.cuda.synchronize()
+                max_abs, over = check_close(
+                    f"attention [8, {l}, {h}, {d}] {dtype}", got,
+                    attention.mha_blhd_plain(q, k, v, d**-0.5), ATTN_TOL[dtype])
+                lse_err = (lse - attention.logsumexp_plain(q, k, d**-0.5)).abs().max().item()
+                if not lse_err <= LSE_ABS_TOL:
+                    raise AssertionError(
+                        f"attention [8, {l}, {h}, {d}] {dtype}: logsumexp off by {lse_err}")
+                emit({"check": "flash_attention_fwd", "dtype": str(dtype),
+                      "shape": [8, l, h, d], "layout": "strided qkv view",
+                      "use": "baseline adapters", "tolerance_x_abs_plus_rms": ATTN_TOL[dtype],
+                      "max_abs_err": max_abs, "max_err_over_tolerance": over,
+                      "lse_max_abs_err": lse_err, "lse_abs_tolerance": LSE_ABS_TOL})
+                del got, lse
+                cases += 1
+                if dtype == torch.bfloat16:
+                    attn_err = max(attn_err, max_abs)
     # contiguous q, k, v too
     q, k, v = (t.contiguous() for t in qkv_views(2, 400, 6, 128, torch.bfloat16, gen))
     check_close("attention contiguous", attention.mha_blhd(q, k, v, 128**-0.5),
@@ -1292,9 +1348,217 @@ def remat_phase(datasets) -> dict:
     return rows["dots"]["launches"]
 
 
+# the baseline adapters at their release sizes on PASTIS-HD (the reference's
+# Table-2 dataset): (name, model, size, fusion, extra BaselineConfig fields)
+BASELINE_RUNS = (
+    ("dinov2", "dinov2", "large", "shared", {"weight_source": "imagenat"}),
+    ("dofa", "dofa", "base", "shared", {}),
+    ("croma-late", "croma", "base", "late-croma", {}),
+    ("croma-inter", "croma", "base", "inter-croma", {}),
+    ("satmae", "satmae", "large", "mod", {}),
+    ("prithvi", "prithvi", "large", "mod", {"version": "v2"}),
+)
+BASELINE_BATCH = 32  # the timed steps'
+
+
+# attention launches a step (the forward's; a finetune step's backward makes as
+# many again, a probe step's none) on PASTIS-HD, from the published depths and the
+# streams each adapter runs: DINOv2-L 24 blocks over each of the 4 streams (spot,
+# s2, s1_asc, s1_des) = 96; DOFA-B 12 blocks x 4 streams = 48; CROMA none (its
+# biased attention is plain PyTorch); SatMAE-L and Prithvi-L 24 blocks over the one
+# S2 series = 24.  No pool launch: the seg head's chunks hold 1-4 positions (ref
+# grid 1-2 tokens wide at patch 14-16), under the fused pool's 32
+BASELINE_ATTN_PER_STEP = {"dinov2": 96, "dofa": 48, "croma-late": 0, "croma-inter": 0,
+                          "satmae": 24, "prithvi": 24}
+BASELINE_POOL_PER_STEP = 0
+# DINOv2's LayerScale starts at 1e-5 and would scale every attention output (and the
+# attention weights' gradients) by it, hiding a wrong kernel from the loss and
+# gradient checks: the agreement runs draw it from N(1, LAYERSCALE_STD), as the CPU
+# tests' synthetic trees do
+LAYERSCALE_STD = 0.1
+
+
+def baseline_launches_per_step(name: str, phase: str) -> list[int]:
+    """The (attention fwd, attention bwd, pool fwd, pool bwd) launches of one
+    supervised step of the adapter ``name`` on PASTIS-HD."""
+    attn = BASELINE_ATTN_PER_STEP[name]
+    pool = BASELINE_POOL_PER_STEP
+    return [attn, attn if phase == "finetune" else 0, pool, pool]  # heads train in both
+
+
+def baselines_phase(card: str) -> dict:
+    """Each baseline adapter at its release size (seeded random weights, bf16
+    compute, fp32 parameters) on PASTIS-HD synthetic batches: three finetune
+    and three probe steps at batch 8 through the kernels and through the
+    plain versions from the same weights (losses, step-1 gradients of every
+    trained parameter and, in finetune, of the attention weights alone, frozen
+    roles, launches a step against ``baseline_launches_per_step``; DINOv2's
+    LayerScale drawn from N(1, ``LAYERSCALE_STD``)), then timed steps at batch
+    32 and their peak memory."""
+    from maestro_tpu_torch.baselines import backbone, build_baseline
+    from maestro_tpu_torch.conf import (BaselineConfig, DatasetsConfig, OptFinetuneConfig,
+                                        OptProbeConfig)
+    from maestro_tpu_torch.models import heads, vit
+    from maestro_tpu_torch.ops import attention, attn_pool
+    from maestro_tpu_torch.train.optim import make_optimizer
+    from maestro_tpu_torch.train.state import TrainState
+    from maestro_tpu_torch.train.steps import init_metric_states, make_supervised_step
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    opt_cls = {"finetune": OptFinetuneConfig, "probe": OptProbeConfig}
+    kernel_fns = (backbone.mha_qkv, vit.attentive_pool, heads.pool_forward, heads.pool_backward)
+    plain_fns = (attention.mha_qkv_plain, plain_pool(attn_pool), plain_pool(attn_pool),
+                 attn_pool.attentive_pool_bwd_plain)
+
+    def use(fns):
+        backbone.mha_qkv, vit.attentive_pool, heads.pool_forward, heads.pool_backward = fns
+
+    def counts():
+        return list(kernel_counts()[:len(SUP_COUNTERS)])
+
+    out = {"launches": dict.fromkeys(SUP_COUNTERS, 0), "rows": []}
+    for name, model_name, size, fusion, extra in BASELINE_RUNS:
+        datasets = DatasetsConfig(name_dataset="pastis_hd")
+        if model_name in ("satmae", "prithvi"):
+            datasets.pastis_hd.filter_inputs = ["s2"]
+            datasets.pastis_hd.__post_init__()
+        cfg = BaselineConfig(model=model_name, model_size=size, fusion_mode=fusion, **extra)
+        t0 = time.perf_counter()
+        model = build_baseline(datasets, cfg, torch.bfloat16, device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        build_s = time.perf_counter() - t0
+        ls_gen = torch.Generator(device="cuda").manual_seed(1)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.rsplit(".", 1)[-1] in ("ls1", "ls2"):
+                    p.normal_(1.0, LAYERSCALE_STD, generator=ls_gen)
+        init = {n: p.detach().clone() for n, p in model.named_parameters()}
+        # the attention weights of every kernel-run block (qkv, proj), for a
+        # gradient cosine of their own
+        attn_names = {f"{m}.{lin}.{w}" for m, mod in model.named_modules()
+                      if isinstance(mod, backbone.EncoderBlock)
+                      for lin in ("qkv", "proj") for w in ("weight", "bias")}
+
+        def fresh(phase: str, batch_size: int):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(init[n])
+            tx = make_optimizer(opt_cls[phase](batch_size=batch_size), phase, 1000, model)
+            return TrainState.create(model, tx), make_supervised_step(model, phase, tx), tx
+
+        def run(phase, batch):
+            state, step, tx = fresh(phase, CHECK_BATCH)
+            trained = [p for g in tx.adamw.param_groups for p in g["params"]]
+            names = {id(p): n for n, p in model.named_parameters()}
+            frozen0 = {n: p.detach().clone() for n, p in model.named_parameters()
+                       if not any(p is q for q in trained)}
+            metrics = init_metric_states(model.head_specs)
+            losses, per_step = [], []
+            for i in range(3):
+                before = counts()
+                state, metrics, logs = step(state, batch, metrics)
+                losses.append(logs["loss_pred"].item())
+                per_step.append([a - b for a, b in zip(counts(), before)])
+                if i == 0:
+                    flat = [(names[id(p)], torch.zeros(p.numel(), device=p.device)
+                             if p.grad is None else p.grad.detach().float().flatten())
+                            for p in sorted(trained, key=lambda q: names[id(q)])]
+                    grads = torch.cat([g for _, g in flat])
+                    attn = [g for n, g in flat if n in attn_names]
+                    attn_grads = torch.cat(attn) if attn else None
+            unchanged = all(torch.equal(p, frozen0[n]) for n, p in model.named_parameters()
+                            if n in frozen0)
+            return losses, per_step, grads, attn_grads, unchanged, len(frozen0)
+
+        for phase in ("finetune", "probe"):
+            batch = make_synthetic_batch(datasets.dataset, CHECK_BATCH, seed=0)
+            want = baseline_launches_per_step(name, phase)
+            use(kernel_fns)
+            before = counts()
+            losses_k, steps_k, grads_k, attn_k, unchanged_k, n_frozen = run(phase, batch)
+            for key, a, b in zip(SUP_COUNTERS, counts(), before):
+                out["launches"][key] += a - b
+            use(plain_fns)
+            try:
+                losses_p, steps_p, grads_p, attn_p, unchanged_p, _ = run(phase, batch)
+            finally:
+                use(kernel_fns)
+            rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+            cos = torch.nn.functional.cosine_similarity(grads_k, grads_p, dim=0).item()
+            # finetune of an adapter with kernel-run blocks: their attention weights alone
+            attn_cos = (None if attn_k is None else
+                        torch.nn.functional.cosine_similarity(attn_k, attn_p, dim=0).item())
+            row = {"adapter": name, "model": model_name, "size": size, "fusion": fusion,
+                   "phase": phase, "batch": CHECK_BATCH, "dataset": "pastis_hd",
+                   "params": sum(p.numel() for p in model.parameters()), "build_s": build_s,
+                   "loss_kernel_path": losses_k, "loss_plain_path": losses_p,
+                   "loss_rel_err": rel, "loss_rtol": STEP_LOSS_RTOL,
+                   "step1_grad_cosine": cos, "step1_grad_cosine_min": GRAD_COS_MIN,
+                   "step1_grad_norm_kernel": grads_k.norm().item(),
+                   "step1_attention_grad_cosine": attn_cos,
+                   "attention_grad_params": 0 if attn_k is None else attn_k.numel(),
+                   "layerscale": f"N(1, {LAYERSCALE_STD})" if model_name == "dinov2" else None,
+                   "frozen_params": n_frozen, "frozen_roles_unchanged": unchanged_k and unchanged_p,
+                   "launches_per_step": dict(zip(SUP_COUNTERS, steps_k[0])),
+                   "launches_per_step_expected": dict(zip(SUP_COUNTERS, want))}
+            emit({"baseline_agreement": row})
+            problems = []
+            if not (all(e <= STEP_LOSS_RTOL for e in rel) and all(map(math.isfinite, losses_k))):
+                problems.append(f"losses {losses_k} vs {losses_p}")
+            if not (grads_k.norm().item() > 0 and cos >= GRAD_COS_MIN):
+                problems.append(f"step-1 gradient cosine {cos}")
+            if phase == "finetune" and BASELINE_ATTN_PER_STEP[name] and not (
+                    attn_cos is not None and attn_k.norm().item() > 0
+                    and attn_cos >= GRAD_COS_MIN):
+                problems.append(f"step-1 attention-weight gradient cosine {attn_cos}")
+            if not (unchanged_k and unchanged_p):
+                problems.append("a frozen parameter changed")
+            if any(s != want for s in steps_k) or any(any(s) for s in steps_p):
+                problems.append(f"launches a step {steps_k} (plain path {steps_p}), "
+                                f"expected {want}")
+            if problems:
+                raise AssertionError(f"baseline {name} {phase}: " + "; ".join(problems))
+            del grads_k, grads_p, attn_k, attn_p
+
+        # timed steps at batch 32, staged on the card once
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 make_synthetic_batch(datasets.dataset, BASELINE_BATCH, seed=1).items()}
+        for phase in ("finetune", "probe"):
+            state, step, _ = fresh(phase, BASELINE_BATCH)
+            metrics = init_metric_states(model.head_specs)
+            for _ in range(WARMUP_STEPS):
+                state, metrics, logs = step(state, batch, metrics)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+            losses = []
+            for i in range(TIMED_STEPS):
+                marks[i].record()
+                state, metrics, logs = step(state, batch, metrics)
+                losses.append(logs["loss_pred"])
+            marks[-1].record()
+            torch.cuda.synchronize()
+            times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+            losses = [x.item() for x in losses]
+            if not all(map(math.isfinite, losses)):
+                raise AssertionError(f"baseline {name} {phase}: non-finite losses {losses}")
+            row = {"adapter": name, "phase": phase, "batch": BASELINE_BATCH,
+                   "step_ms_median": statistics.median(times), "step_ms_all": times,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": card}
+            emit({"baseline_step": row})
+            out["rows"].append(row)
+            del state, step, metrics
+        del model, init, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---- the experiment path: maestro_tpu_torch.main -> run_experiment over tiles on disk
 EXP_TILES = 32  # FLAIR-HUB tiles, listed in the train, val and test CSVs
 EXP_BATCH = 16
+EXP_WORKERS = 8  # data.num_workers; "auto" takes processes on a host with < 16 cores
+LOADER_EPOCHS = 3  # epochs of the loader-alone measurement
+STAGING_REPEATS = 6  # the host cast and pinned copy, timed (the first not counted)
 EXP_EPOCHS = {"pretrain": 1, "probe": 3, "finetune": 2}
 EXP_LOG_EVERY = 2  # trainer.log_every_steps: a loss read back every 2 steps
 EXP_POOL = 32 // 2  # pool calls per pass over a batch: ref grid rows / seg_chunk_rows (2)
@@ -1414,6 +1678,41 @@ class _Patches:
             setattr(obj, name, value)
 
 
+class _PassCounter:
+    """Counts the passes of a CLI run: the ``Experiment`` it makes (``exp``),
+    the batches it stages (``Experiment._device_batch``), and for each pass
+    run through ``counted`` its seconds, batches and kernel launches."""
+
+    def __init__(self, patches: _Patches):
+        from maestro_tpu_torch.train import runtime as TR
+
+        self.passes, self.batches, self.exp = [], 0, None
+        orig_init, orig_batch = TR.Experiment.__init__, TR.Experiment._device_batch
+
+        def init(exp, *a, **k):
+            orig_init(exp, *a, **k)
+            self.exp = exp
+
+        def device_batch(exp, np_batch):
+            self.batches += 1
+            return orig_batch(exp, np_batch)
+
+        patches.set(TR.Experiment, "__init__", init)
+        patches.set(TR.Experiment, "_device_batch", device_batch)
+
+    def counted(self, kind: str, phase: str, fn):
+        before, batches = kernel_counts(), self.batches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        row = {"pass": kind, "phase": phase, "seconds": time.perf_counter() - t,
+               "batches": self.batches - batches,
+               "launches": [a - b for a, b in zip(kernel_counts(), before)]}
+        self.passes.append(row)
+        return out, row
+
+
 def _count_main_thread_syncs(fn):
     """(result of fn(), host syncs the calling thread made in it), by torch's
     sync debug mode; its one-time 'prototype' notice is not a sync."""
@@ -1454,20 +1753,19 @@ def _payload_equal(got, want, where="") -> list[str]:
     return [] if got == want else [where]
 
 
-def experiment_phase(smi: str) -> dict:
-    """``maestro_tpu_torch.main.main`` over 32 FLAIR-HUB tiles written to a
-    temporary directory: MAE medium, group fusion, 3 trunk blocks, bf16,
+def experiment_phase(root, smi: str) -> dict:
+    """``maestro_tpu_torch.main.main`` over the 32 FLAIR-HUB tiles under
+    ``root`` (``write_flair_tiles``): MAE medium, group fusion, 3 trunk blocks, bf16,
     EMA, pretrain 1 epoch, probe 3 (its val epochs 2 and 3 replayed from the
     feature cache), finetune 2 (cosia monitor, test on the best checkpoint),
     batch 16.  Checks every phase's results and files, the launches of each
     kernel per pass against the launches a batch, no plain version run, the
     cache's replay against an uncached probe run, a bit-identical restore of
     the newest finetune checkpoint, and the host syncs of each train epoch.
+    Also the loader alone (threads and worker processes), the host's cast
+    and pinned copy alone, and the loader ``data.loader=auto`` resolved to.
     Returns the launches of the run by kernel."""
-    import math
-    import shutil
-    import tempfile
-    from pathlib import Path
+    import os
 
     import numpy as np
 
@@ -1487,62 +1785,49 @@ def experiment_phase(smi: str) -> dict:
 
     tmp = Path(tempfile.mkdtemp(prefix="maestro_experiment_"))
     try:
-        t0 = time.perf_counter()
-        data_bytes = write_flair_tiles(tmp / "flair", EXP_TILES)
-        emit({"experiment_data": {"tiles": EXP_TILES, "bytes": data_bytes,
-                                  "write_s": time.perf_counter() - t0}})
-        argv = [f"datasets.root_dir={tmp / 'flair'}", "datasets.name_dataset=flair",
+        argv = [f"datasets.root_dir={root}", "datasets.name_dataset=flair",
                 "datasets.flair.rel_dir=", "model.model_size=medium", "model.fusion_mode=group",
                 "model.inter_depth=3", "model.use_ema=true", "trainer.compute_dtype=bfloat16",
                 "trainer.input_dtype=auto", f"trainer.log_every_steps={EXP_LOG_EVERY}",
-                "data.loader=threads", "data.num_workers=8",
+                "data.loader=auto", f"data.num_workers={EXP_WORKERS}",
                 "opt_finetune.monitor=cosia/average_iou_val",
                 "run.logged_images_per_epoch=2", f"run.exp_dir={tmp / 'runs'}",
                 "run.exp_name=experiment"]
         argv += [f"opt_{p}.{k}={v}" for p, n in EXP_EPOCHS.items()
                  for k, v in (("epochs", n), ("batch_size", EXP_BATCH))]
 
-        # the loader alone: the pretrain train split, no device work, with the
-        # run's worker threads and with one
+        # the loader alone: the pretrain train split over LOADER_EPOCHS epochs,
+        # no device work: one thread, the run's workers as threads, the run's
+        # workers as processes (the first epoch starts them)
         cfg0, datasets0 = cli.parse_cli(argv)
-        for workers in (1, cfg0.data.num_workers):
-            _, loader = make_loader(datasets0, DataConfig(num_workers=workers, loader="threads"),
+        cpu_max = Path("/sys/fs/cgroup/cpu.max")
+        host = {"host_cores": os.cpu_count(), "cpu_affinity": len(os.sched_getaffinity(0)),
+                "cgroup_cpu_max": cpu_max.read_text().strip() if cpu_max.exists() else None}
+        for kind, workers in (("threads", 1), ("threads", EXP_WORKERS), ("grain", EXP_WORKERS // 2),
+                              ("grain", EXP_WORKERS)):
+            _, loader = make_loader(datasets0, DataConfig(num_workers=workers, loader=kind),
                                     "train", "pretrain", EXP_BATCH, seed=cfg0.run.seed)
-            t0 = time.perf_counter()
-            n_samples = sum(b["aerial"].shape[0] for b in loader)
-            loader_s = time.perf_counter() - t0
-            emit({"experiment_loader_alone": {"samples": n_samples, "seconds": loader_s,
-                                              "samples_per_s": n_samples / loader_s,
-                                              "workers": workers}})
+            epoch_s, n_samples = [], 0
+            for epoch in range(LOADER_EPOCHS):
+                loader.set_epoch(epoch)
+                t0 = time.perf_counter()
+                n_samples += sum(b["aerial"].shape[0] for b in loader)
+                epoch_s.append(time.perf_counter() - t0)
+            if hasattr(loader, "close"):
+                loader.close()
+            per_epoch = n_samples // LOADER_EPOCHS
+            emit({"experiment_loader_alone": {
+                "loader": kind, "workers": workers, "batch": EXP_BATCH, "samples": n_samples,
+                "epoch_s": epoch_s, "samples_per_s": n_samples / sum(epoch_s),
+                "samples_per_s_after_first_epoch": per_epoch * (LOADER_EPOCHS - 1)
+                / sum(epoch_s[1:]), **host, "card": smi}})
 
         # ---- instrumentation: launches by pass, step starts, syncs, saves
-        passes, phase_rows, saver_rows, holder = [], {}, [], {}
-        state = {"device_batches": 0, "epoch": {}}
+        phase_rows, saver_rows, holder = {}, [], {}
+        state = {"epoch": {}}
         patches = _Patches()
-        orig_init = TR.Experiment.__init__
-
-        def init(self, *a, **k):
-            orig_init(self, *a, **k)
-            holder["exp"] = self
-
-        def counted(kind, phase, fn):
-            before, batches = kernel_counts(), state["device_batches"]
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            row = {"pass": kind, "phase": phase, "seconds": time.perf_counter() - t,
-                   "batches": state["device_batches"] - batches,
-                   "launches": [a - b for a, b in zip(kernel_counts(), before)]}
-            passes.append(row)
-            return out, row
-
-        orig_device_batch = TR.Experiment._device_batch
-
-        def device_batch(self, np_batch):
-            state["device_batches"] += 1
-            return orig_device_batch(self, np_batch)
-
+        counter = _PassCounter(patches)
+        passes, counted = counter.passes, counter.counted
         orig_fit = TR.Experiment.fit_phase
 
         def fit_phase(self, phase, opt, *a, **k):
@@ -1623,9 +1908,7 @@ def experiment_phase(smi: str) -> dict:
                                "background_s": list(self.background_s),
                                "end_wait_s": list(self.end_wait_s)})
 
-        for obj, name, fn in ((TR.Experiment, "__init__", init),
-                              (TR.Experiment, "_device_batch", device_batch),
-                              (TR.Experiment, "fit_phase", fit_phase),
+        for obj, name, fn in ((TR.Experiment, "fit_phase", fit_phase),
                               (TR.Experiment, "_run_train_epoch", run_train_epoch),
                               (TR.Experiment, "_run_eval_epoch", run_eval_epoch),
                               (ProbeEvalCache, "verify_replay", verify_replay),
@@ -1645,12 +1928,18 @@ def experiment_phase(smi: str) -> dict:
             plain = plain_counts()
         finally:
             patches.undo()
-        exp = holder["exp"]
+        exp = counter.exp
+        want_loader = "grain" if (os.cpu_count() or 1) < 2 * EXP_WORKERS else "threads"
         emit({"experiment_run": {"seconds": run_s, "launches": totals, "plain_calls": plain,
-                                 "passes": len(passes)}})
+                                 "passes": len(passes), "loader": exp.cfg.data.loader,
+                                 "loader_expected": want_loader,
+                                 "host_cores": os.cpu_count()}})
 
-        # check 1: three phases, finite losses every epoch, checkpoints and files
+        # check 1: the loader "auto" resolved to; three phases, finite losses
+        # every epoch, checkpoints and files
         problems = []
+        if exp.cfg.data.loader != want_loader:
+            problems.append(f"data.loader=auto resolved to {exp.cfg.data.loader}")
         if list(results) != list(EXP_EPOCHS):
             problems.append(f"phases {list(results)}")
         for phase, res in results.items():
@@ -1741,6 +2030,29 @@ def experiment_phase(smi: str) -> dict:
                                      "tensors": len(compared)}})
         del holder["reference"], fresh, tx
 
+        # the host's cast and pinned copy alone (Experiment._device_batch): a
+        # loader batch of the pretrain phase (fp32 kept) and of the probe
+        # phase (bf16 cast), host time and time until the batch is on the card
+        np_batch = make_synthetic_batch(exp.datasets.dataset, EXP_BATCH, seed=3)
+        for phase in ("pretrain", "probe"):
+            exp._staging_phase = phase
+            host_ms, device_ms = [], []
+            for _ in range(STAGING_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                staged = exp._device_batch(np_batch)
+                host_ms.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                device_ms.append((time.perf_counter() - t0) * 1e3)
+            emit({"experiment_staging_alone": {
+                "phase": phase, "batch": EXP_BATCH,
+                "host_bytes": sum(v.nbytes for v in np_batch.values()),
+                "staged_bytes": sum(t.numel() * t.element_size() for t in staged.values()),
+                "host_ms_median": statistics.median(host_ms[1:]),
+                "until_on_card_ms_median": statistics.median(device_ms[1:]),
+                "host_ms_all": host_ms, "until_on_card_ms_all": device_ms, "card": smi}})
+            del staged
+
         # check 5 and the per-phase times: train step inside an epoch against
         # one staged-once batch at the same batch size
         opts = {"pretrain": OptPretrainConfig, "probe": OptProbeConfig,
@@ -1797,11 +2109,198 @@ def experiment_phase(smi: str) -> dict:
             raise AssertionError("experiment phase: " + "; ".join(problems))
         del exp, model
         holder.clear()
+        counter.exp = None
         torch.cuda.empty_cache()
         return totals
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+
+# the DINOv2-large CLI run over the experiment's FLAIR-HUB tiles, at the
+# image sizes of tests/test_baseline_segmentation.py (aerial 448 px: a
+# 32-wide grid at patch 14; DEM 512 px: 36; S2 and S1 28 px: 2)
+BCLI_BATCH = 8
+BCLI_EPOCHS = {"probe": 1, "finetune": 1}
+BCLI_ATTN = 24 * 5  # 24 blocks over each of the 5 modality streams
+BCLI_POOL = 32 // 2  # seg-head chunks: the aerial grid's 32 rows, 2 a chunk
+BCLI_PER_BATCH = {
+    ("train", "probe"): (BCLI_ATTN, 0, BCLI_POOL, BCLI_POOL, 0, 0),
+    ("train", "finetune"): (BCLI_ATTN, BCLI_ATTN, BCLI_POOL, BCLI_POOL, 0, 0),
+    ("eval", "probe"): (BCLI_ATTN, 0, BCLI_POOL, 0, 0, 0),
+    ("eval", "finetune"): (BCLI_ATTN, 0, BCLI_POOL, 0, 0, 0),
+}
+
+
+def baseline_cli_phase(root, smi: str) -> dict:
+    """``maestro_tpu_torch.main.main`` with ``model.model=dinov2
+    model.model_size=large model.fusion_mode=shared`` over the FLAIR-HUB tiles
+    under ``root``: no pretrain, probe 1 epoch, finetune 1 epoch (test on the
+    best checkpoint), batch 8, ``data.loader=auto``.  Each kernel's launches
+    per pass must be the pass's batches x launches a batch, and no plain
+    version may run.  Returns the launches of the run by kernel."""
+    from maestro_tpu_torch import main as cli
+    from maestro_tpu_torch.train import runtime as TR
+
+    tmp = Path(tempfile.mkdtemp(prefix="maestro_baseline_"))
+    argv = [f"datasets.root_dir={root}", "datasets.name_dataset=flair",
+            "datasets.flair.rel_dir=", "datasets.flair.aerial.image_size=448",
+            "datasets.flair.spot.image_size=56", "datasets.flair.s2.image_size=28",
+            "datasets.flair.s1_asc.image_size=28", "datasets.flair.s1_des.image_size=28",
+            "model.model=dinov2", "model.model_size=large", "model.fusion_mode=shared",
+            "trainer.compute_dtype=bfloat16", "data.loader=auto",
+            f"data.num_workers={EXP_WORKERS}", "opt_finetune.monitor=cosia/average_iou_val",
+            "run.logged_images_per_epoch=0", f"run.exp_dir={tmp}", "run.exp_name=dinov2"]
+    argv += [f"opt_{p}.{k}={v}" for p, n in BCLI_EPOCHS.items()
+             for k, v in (("epochs", n), ("batch_size", BCLI_BATCH))]
+    patches = _Patches()
+    counter = _PassCounter(patches)
+
+    def counted(kind, orig):
+        def run(exp, phase, *a, **k):
+            return counter.counted(kind, phase, lambda: orig(exp, phase, *a, **k))[0]
+        return run
+
+    for name, kind in (("_run_train_epoch", "train"), ("_run_eval_epoch", "eval")):
+        patches.set(TR.Experiment, name, counted(kind, getattr(TR.Experiment, name)))
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        results = cli.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        totals = dict(zip(KERNEL_COUNTERS, kernel_counts()))
+        plain = plain_counts()
+    finally:
+        patches.undo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    exp, passes = counter.exp, counter.passes
+    problems = []
+    if list(results) != list(BCLI_EPOCHS):
+        problems.append(f"phases {list(results)} (a baseline has no pretrain)")
+    for phase, res in results.items():
+        vals = [e.get("train/loss_pred") for e in res.history]
+        if len(vals) != BCLI_EPOCHS[phase] or not all(
+                v is not None and math.isfinite(v) for v in vals):
+            problems.append(f"{phase} losses {vals}")
+    by_kernel = dict.fromkeys(KERNEL_COUNTERS, 0)
+    for row in passes:
+        row["expected"] = [row["batches"] * k for k in BCLI_PER_BATCH[(row["pass"], row["phase"])]]
+        row["seconds_per_batch"] = row["seconds"] / max(row["batches"], 1)
+        for name, got in zip(KERNEL_COUNTERS, row["launches"]):
+            by_kernel[name] += got
+    wrong = [(r["pass"], r["phase"], r["launches"], r["expected"]) for r in passes
+             if r["launches"] != r["expected"]]
+    if wrong:
+        problems.append(f"launches by pass differ: {wrong}")
+    if by_kernel != totals:
+        problems.append(f"passes add to {by_kernel}, the counters read {totals}")
+    if 0 in [totals[k] for k in SUP_COUNTERS]:
+        problems.append(f"an attention or pool kernel was never launched: {totals}")
+    if any(plain.values()):
+        problems.append(f"plain versions ran on the card: {plain}")
+    emit({"baseline_cli_run": {
+        "model": "dinov2 large imagenat", "fusion": "shared", "dataset": "flair",
+        "batch": BCLI_BATCH, "seconds": run_s, "loader": exp.cfg.data.loader,
+        "stream_tokens": {m: s.grid**2 + 1 for m, s in exp.plan.mod_specs.items()},
+        "launches": totals, "plain_calls": plain, "passes": passes,
+        "results": {p: {"val": r.val_metrics, "test": r.test_metrics}
+                    for p, r in results.items()}, "card": smi}})
+    if problems:
+        raise AssertionError("baseline CLI run: " + "; ".join(problems))
+    del exp
+    counter.exp = None
+    torch.cuda.empty_cache()
+    return totals
+
+
+
+# ---- the experiment path at tens of batches a pass, thread loader against worker
+# processes (``python3 chip_smoke.py --loader-e2e [threads,grain,...]``; not part of
+# the default run): each CLI run in a fresh interpreter, as a user starts one
+E2E_TILES = 320  # FLAIR-HUB tiles a split: 20 batches of EXP_BATCH a pass
+E2E_EPOCHS = {"pretrain": 1, "probe": 2, "finetune": 1}  # probe 2: the cache's replay check
+E2E_ORDER = ("threads", "grain", "grain", "threads")
+
+
+def loader_e2e_run(root, loader: str, smi: str) -> dict:
+    """``maestro_tpu_torch.main.main`` over the tiles under ``root`` with
+    ``data.loader=loader``: the experiment phase's model and options at
+    ``E2E_EPOCHS``; the run's and each phase's seconds."""
+    from maestro_tpu_torch import main as cli
+    from maestro_tpu_torch.train import runtime as TR
+
+    tmp = Path(tempfile.mkdtemp(prefix="maestro_e2e_"))
+    argv = [f"datasets.root_dir={root}", "datasets.name_dataset=flair",
+            "datasets.flair.rel_dir=", "model.model_size=medium", "model.fusion_mode=group",
+            "model.inter_depth=3", "model.use_ema=true", "trainer.compute_dtype=bfloat16",
+            "trainer.input_dtype=auto", f"trainer.log_every_steps={EXP_LOG_EVERY}",
+            f"data.loader={loader}", f"data.num_workers={EXP_WORKERS}",
+            "opt_finetune.monitor=cosia/average_iou_val",
+            "run.logged_images_per_epoch=2", f"run.exp_dir={tmp}", "run.exp_name=e2e"]
+    argv += [f"opt_{p}.{k}={v}" for p, n in E2E_EPOCHS.items()
+             for k, v in (("epochs", n), ("batch_size", EXP_BATCH))]
+    phases, resolved = {}, {}
+    orig = TR.Experiment.fit_phase
+
+    def fit_phase(self, phase, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resolved["loader"] = self.cfg.data.loader
+        try:
+            return orig(self, phase, *a, **k)
+        finally:
+            torch.cuda.synchronize()
+            phases[phase] = time.perf_counter() - t
+
+    TR.Experiment.fit_phase = fit_phase
+    try:
+        t0 = time.perf_counter()
+        results = cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        TR.Experiment.fit_phase = orig
+        shutil.rmtree(tmp, ignore_errors=True)
+    losses = {p: [e.get("train/loss_rec", e.get("train/loss_pred")) for e in r.history]
+              for p, r in results.items()}
+    if list(results) != list(E2E_EPOCHS) or not all(
+            len(v) == E2E_EPOCHS[p] and all(x is not None and math.isfinite(x) for x in v)
+            for p, v in losses.items()):
+        raise AssertionError(f"loader e2e run ({loader}): phases or losses {losses}")
+    return {"loader": loader, "resolved": resolved.get("loader"), "seconds": seconds,
+            "phase_seconds": phases, "batches_per_pass": E2E_TILES // EXP_BATCH,
+            "batch": EXP_BATCH, "workers": EXP_WORKERS, "epochs": E2E_EPOCHS,
+            "train_losses": losses, "card": smi}
+
+
+def loader_e2e(order, smi: str) -> None:
+    """Write ``E2E_TILES`` tiles, build the kernels, then one CLI run a
+    loader of ``order``, each in its own interpreter."""
+    from maestro_tpu_torch.ops import attention, attn_pool, fused_loss
+
+    attention._kernel()
+    attn_pool._kernel()
+    attn_pool._bwd_kernel()
+    fused_loss._kernel()
+    tiles = Path(tempfile.mkdtemp(prefix="maestro_e2e_tiles_"))
+    try:
+        t0 = time.perf_counter()
+        data_bytes = write_flair_tiles(tiles, E2E_TILES)
+        emit({"loader_e2e_data": {"tiles": E2E_TILES, "bytes": data_bytes,
+                                  "write_s": time.perf_counter() - t0}})
+        for loader in order:
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, __file__, "--loader-e2e-run", loader,
+                                  str(tiles)], capture_output=True, text=True, check=False)
+            rows = [ln for ln in out.stdout.splitlines() if ln.startswith('{"loader_e2e_run"')]
+            if out.returncode != 0 or not rows:
+                sys.stderr.write(out.stderr[-8000:])
+                raise AssertionError(f"loader e2e run ({loader}) failed: {out.returncode}")
+            row = json.loads(rows[-1])["loader_e2e_run"]
+            row["process_s"] = time.perf_counter() - t0
+            emit({"loader_e2e_run": row})
+    finally:
+        shutil.rmtree(tiles, ignore_errors=True)
 
 
 def main() -> None:
@@ -1810,6 +2309,13 @@ def main() -> None:
         print("chip_smoke: no CUDA device is available; this script runs on the GPU only.",
               file=sys.stderr)
         sys.exit(1)
+    if "--loader-e2e-run" in sys.argv[1:]:
+        loader, root = sys.argv[sys.argv.index("--loader-e2e-run") + 1:][:2]
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+        emit({"loader_e2e_run": loader_e2e_run(root, loader, smi)})
+        return
 
     from maestro_tpu_torch.conf import DatasetsConfig, MaskConfig, ModelConfig
     from maestro_tpu_torch.models import vit
@@ -1830,6 +2336,11 @@ def main() -> None:
     print(smi, flush=True)
     emit({"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
+    if "--loader-e2e" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--loader-e2e") + 1:]
+        order = rest[0].split(",") if rest and not rest[0].startswith("--") else E2E_ORDER
+        loader_e2e(order, smi)
+        return
 
     # ---- 2. the build (every source compiled in parallel at first use)
     attention._kernel()
@@ -1925,8 +2436,20 @@ def main() -> None:
     sk = skip_nonfinite_phase(datasets)
     rd = remat_phase(datasets)
 
-    # ---- 5e. the experiment path: the CLI over tiles on disk
-    ex = experiment_phase(smi)
+    # ---- 5e. the baseline adapters at their release sizes (PASTIS-HD)
+    bl = baselines_phase(card)
+
+    # ---- 5f. the experiment path, then a baseline through the CLI, over tiles on disk
+    tiles = Path(tempfile.mkdtemp(prefix="maestro_tiles_"))
+    try:
+        t0 = time.perf_counter()
+        data_bytes = write_flair_tiles(tiles, EXP_TILES)
+        emit({"experiment_data": {"tiles": EXP_TILES, "bytes": data_bytes,
+                                  "write_s": time.perf_counter() - t0}})
+        ex = experiment_phase(tiles, smi)
+        bc = baseline_cli_phase(tiles, smi)
+    finally:
+        shutil.rmtree(tiles, ignore_errors=True)
 
     # ---- 6. kernel times at the main paths' shapes, back to back
     # (inputs stay warm in L2, as they are right after the qkv projection)
@@ -2093,7 +2616,8 @@ def main() -> None:
     tl = train["launches"]
     # the launches of the paths this slice added, by counter
     extra = lambda key: {"pretrain_eval": pe.get(key, 0), "skip_nonfinite": sk.get(key, 0),  # noqa: E731
-                         "finetune_remat_dots": rd.get(key, 0), "experiment": ex[key]}
+                         "finetune_remat_dots": rd.get(key, 0), "experiment": ex[key],
+                         "baselines": bl["launches"].get(key, 0), "baseline_cli": bc[key]}
     loss_entry = lambda direction, fn_name, line, key, err, per_step, times: {  # noqa: E731
         "name": fn_name, "route": "cuda", "source": "maestro_tpu_torch/csrc/fused_loss.cu",
         "replaces": f"maestro_tpu/ops/fused_loss.py:{line}",

@@ -1,6 +1,7 @@
 """Configuration layer: typed dataclasses + derived static shape state."""
 
 from maestro_tpu_torch.conf.core import (
+    BaselineConfig,
     DataConfig,
     ExperimentConfig,
     MaskConfig,
@@ -27,6 +28,7 @@ from maestro_tpu_torch.conf.dataset.treesatai_ts import TreeSatAITSConfig
 from maestro_tpu_torch.conf.datasets import DatasetsConfig
 
 __all__ = [
+    "BaselineConfig",
     "DataConfig",
     "DatasetConfig",
     "DatasetsConfig",

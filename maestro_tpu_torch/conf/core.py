@@ -112,8 +112,10 @@ class DataConfig:
     num_workers: int = 12
     prefetch: int = 4
     # "threads" = in-process pool (GIL released in h5py / rasterio / numpy
-    # reads); "auto" = threads in the port; "grain" (the JAX package's
-    # multiprocess pipeline) raises: grain imports JAX (data/loader.py)
+    # reads); "grain" = worker processes (data/mp_loader.py, the port's
+    # counterpart of the JAX package's grain pipeline, under its CLI name);
+    # "auto" = processes when num_workers >= 4 and the host has fewer than
+    # 2 * num_workers cores, else threads (data/loader.py::resolve_loader)
     loader: str = "auto"
 
 
@@ -122,8 +124,9 @@ class ModelConfig:
     """Model options (reference conf/model.py:8-19 + baseline fields :22-34).
 
     ``model`` selects the flagship MAE ("mae") or a baseline FM adapter
-    ("dinov2" / "dofa" / "croma" / "satmae" / "prithvi"); only the MAE is
-    ported, and the baseline-only fields are ignored for it.
+    ("dinov2" / "dofa" / "croma" / "satmae" / "prithvi"); the baseline-only
+    fields are ignored for the MAE (``models/factory.py`` passes them on as a
+    ``BaselineConfig``).
     """
 
     interpolate: str = "nearest"
@@ -155,6 +158,26 @@ class ModelConfig:
     keep_norm: bool = True
     add_date_enc: bool = True
     version: str | None = None
+
+
+@dataclass
+class BaselineConfig:
+    """Baseline foundation-model adapter options (reference conf/model.py:22-34)."""
+
+    interpolate: str = "nearest"
+    fusion_mode: str = "shared"
+    model: str = "dinov2"
+    model_size: str = "small"
+    type_head: str = "attentive"
+    freeze: bool = False
+    weight_source: str = "imagenat"
+    pretrained_path: str | None = None
+    keep_norm: bool = True
+    add_date_enc: bool = True
+    use_ema: bool = True
+    version: str | None = None
+    seg_chunk_rows: int = 2  # see ModelConfig.seg_chunk_rows
+    seg_unroll: int = 1  # see ModelConfig.seg_unroll
 
 
 @dataclass

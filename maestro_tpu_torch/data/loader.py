@@ -1,11 +1,12 @@
-"""Host batch loader: parallel sample reads + numpy collation + prefetch.
+"""Host batch loaders: parallel sample reads + numpy collation + prefetch.
 
-Replaces the reference's torch DataLoader (12 worker processes,
-reference maestro/train/data.py).  Raster decoding is numpy and releases
-the GIL inside h5py/imageio/numpy reads, so a thread pool + prefetch queue
-overlaps reads with the device.  The JAX package's grain pipeline is not
-ported: grain imports JAX (``resolve_loader``).
-All splits iterate shuffled with drop_last (reference data.py:38-44).
+Replace the reference's torch DataLoader (12 worker processes, reference
+maestro/train/data.py).  ``EOBatchLoader`` reads in a thread pool (raster
+decoding is numpy and releases the GIL inside h5py/imageio/numpy reads);
+``mp_loader.ProcessBatchLoader`` reads in worker processes.  Both yield the
+same batches in the same order (``epoch_batches``); ``resolve_loader`` picks
+one as the JAX package does.  All splits iterate shuffled with drop_last
+(reference data.py:38-44).
 """
 
 from __future__ import annotations
@@ -21,6 +22,18 @@ import numpy as np
 def collate(samples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
     keys = samples[0].keys()
     return {k: np.stack([s[k] for s in samples], axis=0) for k in keys}
+
+
+def epoch_batches(n: int, batch_size: int, shuffle: bool, drop_last: bool, seed: int,
+                  epoch: int) -> list[np.ndarray]:
+    """The sample indices of each batch of one epoch: a pure function of
+    (seed, epoch), so a restarted process reproduces it (the mid-epoch
+    resume) and both loaders read the same batches."""
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng([seed, epoch]).shuffle(order)
+    nb = n // batch_size if drop_last else (n + batch_size - 1) // batch_size
+    return [order[i * batch_size : (i + 1) * batch_size] for i in range(nb)]
 
 
 class EOBatchLoader:
@@ -60,20 +73,11 @@ class EOBatchLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _batches(self) -> list[np.ndarray]:
-        order = np.arange(len(self.dataset))
-        if self.shuffle:
-            np.random.default_rng([self.seed, self.epoch]).shuffle(order)
-        nb = len(self)
-        return [
-            order[i * self.batch_size : (i + 1) * self.batch_size]
-            for i in range(nb)
-        ]
-
     def __iter__(self):
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(self.epoch)  # per-(epoch, idx) sample rng
-        batches = self._batches()
+        batches = epoch_batches(len(self.dataset), self.batch_size, self.shuffle,
+                                self.drop_last, self.seed, self.epoch)
         if self.skip_batches:
             batches = batches[self.skip_batches :]  # no decode for skipped
             self.skip_batches = 0
@@ -123,22 +127,29 @@ class EOBatchLoader:
             stop.set()
 
 
-def resolve_loader(data_cfg) -> str:
-    """Resolve ``data_cfg.loader``: "auto" is the thread pool.
+LOADERS = ("threads", "grain")
 
-    The JAX package's "auto" picks its grain pipeline on a host with few
-    cores; grain imports JAX, which the port never loads, so "grain" raises
-    until a multiprocess loader without JAX is ported (ROADMAP.md queue 1
-    item 9).
+
+def resolve_loader(data_cfg) -> str:
+    """Resolve ``data_cfg.loader``; "auto" picks what can feed the device, as
+    the JAX package's ``resolve_loader`` does.
+
+    The thread pool is held by the GIL on decode-heavy pipelines (PERF.md,
+    the experiment phase's loader alone), so "auto" selects the worker
+    processes ("grain", ``mp_loader.ProcessBatchLoader``) when the host is
+    core-starved relative to the configured worker count, and only for
+    production-sized pools (small test pools keep the cheap in-process
+    loader).
     """
-    if data_cfg.loader == "grain":
-        msg = ("data.loader=grain is not ported (grain imports JAX); a multiprocess "
-               "loader without JAX is ROADMAP.md queue 1 item 9. Use data.loader=threads.")
-        raise NotImplementedError(msg)
-    if data_cfg.loader not in ("auto", "threads"):
+    if data_cfg.loader == "auto":
+        cores = os.cpu_count() or 1
+        if data_cfg.num_workers >= 4 and cores < 2 * data_cfg.num_workers:
+            return "grain"
+        return "threads"
+    if data_cfg.loader not in LOADERS:
         msg = f"unknown data.loader={data_cfg.loader!r} (auto, threads or grain)"
         raise ValueError(msg)
-    return "threads"
+    return data_cfg.loader
 
 
 def pin_loader(data_cfg) -> str:
@@ -157,10 +168,13 @@ def make_loader(
     ssl_phase: str,
     batch_size: int,
     seed: int = 0,
+    group=None,
 ):
     """Build (dataset, loader) for one (stage, phase), mirroring SSLDataModule.
 
-    ``data_cfg.loader`` must resolve to the thread pool (``resolve_loader``).
+    ``data_cfg.loader`` selects the thread pool ("threads"), the worker
+    processes ("grain") or "auto" (``resolve_loader``).  ``group``: an
+    ``mp_loader.WorkerGroup`` whose workers the process loader shares.
     """
     from maestro_tpu_torch.data.datasets import DATASET_CLASSES
 
@@ -180,14 +194,25 @@ def make_loader(
         ssl_phase=ssl_phase,
         seed=seed,
     )
-    resolve_loader(data_cfg)
-    loader = EOBatchLoader(
-        dataset,
-        batch_size=batch_size,
-        shuffle=True,
-        drop_last=True,
-        num_workers=data_cfg.num_workers,
-        prefetch=data_cfg.prefetch,
-        seed=seed,
-    )
-    return dataset, loader
+    kwargs = {"batch_size": batch_size, "shuffle": True, "drop_last": True,
+              "num_workers": data_cfg.num_workers, "prefetch": data_cfg.prefetch, "seed": seed}
+    if resolve_loader(data_cfg) == "grain":
+        from maestro_tpu_torch.data.mp_loader import ProcessBatchLoader
+
+        return dataset, ProcessBatchLoader(dataset, group=group, **kwargs)
+    return dataset, EOBatchLoader(dataset, **kwargs)
+
+
+def make_loaders(datasets_cfg, data_cfg, ssl_phase: str, batch_size: int,
+                 seed: int = 0) -> dict:
+    """The train, val and test loaders of one phase; the worker processes
+    ("grain") are one ``WorkerGroup`` for the three, which the runtime reads
+    one at a time."""
+    group = None
+    if resolve_loader(data_cfg) == "grain":
+        from maestro_tpu_torch.data.mp_loader import WorkerGroup
+
+        group = WorkerGroup(data_cfg.num_workers, data_cfg.prefetch)
+    return {stage: make_loader(datasets_cfg, data_cfg, stage, ssl_phase, batch_size, seed,
+                               group=group)[1]
+            for stage in ("train", "val", "test")}

@@ -1,18 +1,18 @@
-"""Build the experiment's model from configs.
+"""Build the experiment's model (MAE or baseline adapter) from configs.
 
 Single construction point mirroring the reference's instantiate-by-config
-dispatch (maestro/run_experiment.py:33-52).  Only the MAE is ported; the
-baseline foundation-model adapters are not.
+dispatch (maestro/run_experiment.py:33-52).
 """
 
 from __future__ import annotations
 
+from dataclasses import fields
+
 import torch
 
-from maestro_tpu_torch.conf.core import ExperimentConfig
+from maestro_tpu_torch.baselines import BASELINE_MODELS, build_baseline
+from maestro_tpu_torch.conf.core import BaselineConfig, ExperimentConfig
 from maestro_tpu_torch.models.mae import build_model
-
-BASELINE_MODELS = ("dinov2", "dofa", "croma", "satmae", "prithvi")
 
 
 def build_experiment_model(datasets, cfg: ExperimentConfig, dtype=None, *,
@@ -25,9 +25,11 @@ def build_experiment_model(datasets, cfg: ExperimentConfig, dtype=None, *,
             else torch.float32
         )
     if cfg.model.model in BASELINE_MODELS:
-        msg = (f"baseline adapter {cfg.model.model!r} is not ported yet "
-               "(ROADMAP.md queue 1 item 5).")
-        raise NotImplementedError(msg)
+        # the baseline fields of ModelConfig, by name
+        bcfg = BaselineConfig(**{f.name: getattr(cfg.model, f.name)
+                                 for f in fields(BaselineConfig)})
+        model = build_baseline(datasets, bcfg, dtype, device=device, generator=generator)
+        return model, model.plan, True
     model, plan = build_model(
         datasets, cfg.mask, cfg.model, dtype=dtype, device=device,
         generator=generator, remat=cfg.trainer.remat,

@@ -37,7 +37,7 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
 
 def layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
     """LayerNorm with fp32 statistics and affine, result cast to ``dtype``."""
-    y = F.layer_norm(x.float(), layer.normalized_shape, layer.weight, layer.bias, LN_EPS)
+    y = F.layer_norm(x.float(), layer.normalized_shape, layer.weight, layer.bias, layer.eps)
     return y.to(dtype)
 
 
@@ -52,9 +52,9 @@ def init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
             layer.bias.zero_()
 
 
-def normal_parameter(shape, generator: torch.Generator, device) -> nn.Parameter:
-    """fp32 Normal(0, 1) parameter drawn on the CPU from ``generator``."""
-    return nn.Parameter(torch.randn(shape, generator=generator).to(device))
+def normal_parameter(shape, generator: torch.Generator, device, std: float = 1.0) -> nn.Parameter:
+    """fp32 Normal(0, std) parameter drawn on the CPU from ``generator``."""
+    return nn.Parameter((torch.randn(shape, generator=generator) * std).to(device))
 
 
 class Attention(nn.Module):

@@ -2,15 +2,19 @@
 
 ``load_jax_params(module, tree)`` takes the JAX package's parameter tree as
 nested dicts of numpy arrays (with or without the outer ``"params"`` key) and
-fills ``module``'s parameters in place:
+fills ``module``'s parameters in place.  Each parameter's flax path follows
+from the module tree (``flax_path``):
 
-* Dense ``kernel [in, out]`` -> ``nn.Linear.weight [out, in]`` (transposed);
-* LayerNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
-* ``PatchEmbed`` ``norm{g}_scale`` / ``norm{g}_bias`` and ``query`` keep
-  their names;
-* MaestroMAE's dict-valued attributes (``encoders_<stream>``,
-  ``patch_embed_<mod>``, ``heads_<target>`` ...) -> ``encoders.<stream>`` ...;
-  ``mask_token_<mod>`` -> ``mask_tokens.<mod>``.
+* a submodule or parameter is one path component under its attribute name;
+* the members of an ``nn.ModuleDict`` / ``nn.ModuleList`` / ``nn.ParameterDict``
+  join their container's name with ``"_"``, as flax names the members of a
+  dict or list attribute (``encoders_<stream>``, ``heads_<target>``,
+  ``blocks_shared_0``, DINOv2's ``cls_<mod>``); MaestroMAE's ``mask_tokens``
+  are flax's ``mask_token_<mod>``;
+* a ``nn.Linear`` weight is the Dense ``kernel`` (transposed), a
+  ``nn.LayerNorm`` weight its ``scale``; every other leaf keeps its name
+  (``bias``, ``query``, ``PatchEmbed``'s ``norm{g}_scale``, LayerScale's
+  ``ls1``, DOFA's ``weight_tokens`` ...).
 
 It is strict both ways: a flax leaf that maps to no parameter, a shape that
 disagrees, or a parameter left unfilled raises and lists the names.  A flax
@@ -26,12 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-# MaestroMAE attributes that hold a dict of submodules: flax names them
-# "<attribute>_<key>", nn.ModuleDict "<attribute>.<key>".
-_DICT_ATTRS = (
-    "patch_embed", "pixelify", "encoders", "enc_to_dec", "decoders", "heads",
-)
-_LEAF_RENAMES = {"kernel": "weight", "scale": "weight"}
+_CONTAINERS = (nn.ModuleDict, nn.ModuleList, nn.ParameterDict, nn.ParameterList)
+_FLAX_ATTRS = {"mask_tokens": "mask_token"}  # attribute names flax spells otherwise
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
@@ -42,21 +42,32 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
             yield prefix + (str(key),), np.asarray(value)
 
 
-def _target_name(path: tuple[str, ...]) -> tuple[str, bool]:
-    """(state-dict name, transpose?) of one flax leaf path."""
-    head, *rest = path
-    if head.startswith("mask_token_"):
-        parts = ["mask_tokens", head[len("mask_token_"):]]
-    else:
-        parts = [head]
-        for attr in _DICT_ATTRS:
-            if head.startswith(attr + "_"):
-                parts = [attr, head[len(attr) + 1:]]
-                break
-    parts += rest
-    leaf = parts[-1]
-    parts[-1] = _LEAF_RENAMES.get(leaf, leaf)
-    return ".".join(parts), leaf == "kernel"
+def flax_path(module: nn.Module, name: str) -> tuple[tuple[str, ...], bool]:
+    """(flax path, transpose?) of the parameter ``name`` of ``module``."""
+    path: list[str] = []
+    owner: nn.Module = module
+    parts = name.split(".")
+    for i, part in enumerate(parts):
+        if isinstance(owner, _CONTAINERS) and path:
+            path[-1] = f"{path[-1]}_{part}"
+        else:
+            path.append(_FLAX_ATTRS.get(part, part))
+        if i < len(parts) - 1:
+            owner = owner._modules[part]
+    transpose = False
+    if parts[-1] == "weight" and not isinstance(owner, _CONTAINERS):
+        transpose = isinstance(owner, nn.Linear)
+        path[-1] = "kernel" if transpose else "scale"
+    return tuple(path), transpose
+
+
+def flax_names(module: nn.Module) -> dict[tuple[str, ...], tuple[str, bool]]:
+    """Flax path -> (parameter name, transpose?) of every parameter of ``module``."""
+    out = {}
+    for name, _ in module.named_parameters():
+        path, transpose = flax_path(module, name)
+        out[path] = (name, transpose)
+    return out
 
 
 def load_jax_params(
@@ -67,14 +78,17 @@ def load_jax_params(
     """Fill ``module``'s parameters from a flax tree of numpy arrays."""
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
+    leaves = dict(_flatten(tree))
+    mismatched, unfilled = [], []
+    allowed = tuple(missing_ok)
     params = dict(module.named_parameters())
-    unknown, mismatched, filled = [], [], set()
     with torch.no_grad():
-        for path, value in _flatten(tree):
-            name, transpose = _target_name(path)
-            param = params.get(name)
-            if param is None:
-                unknown.append("/".join(path))
+        for path, (name, transpose) in flax_names(module).items():
+            param = params[name]
+            value = leaves.pop(path, None)
+            if value is None:
+                if not name.startswith(allowed):
+                    unfilled.append(name)
                 continue
             if transpose:
                 value = value.T
@@ -83,13 +97,8 @@ def load_jax_params(
                     f"{'/'.join(path)} {tuple(value.shape)} -> {name} {tuple(param.shape)}",
                 )
                 continue
-            param.copy_(torch.from_numpy(np.ascontiguousarray(value)).to(param.dtype))
-            filled.add(name)
-    allowed = tuple(missing_ok)
-    unfilled = [
-        name for name in params
-        if name not in filled and not name.startswith(allowed)
-    ]
+            param.copy_(torch.tensor(value, dtype=param.dtype))
+    unknown = ["/".join(path) for path in leaves]
     if unknown or mismatched or unfilled:
         msg = (
             "load_jax_params: the trees do not match.\n"

@@ -82,8 +82,8 @@ def check_supported(cfg: ExperimentConfig) -> None:
     if t.fsdp:
         refusals.append("trainer.fsdp=true (FSDP: ROADMAP.md queue 1 item 4)")
     if cfg.model.pretrained_path:
-        refusals.append("model.pretrained_path (the baseline adapters' warm start: ROADMAP.md "
-                        "queue 1 item 5; the MAE warm-starts from run.load_*)")
+        refusals.append("model.pretrained_path (the baseline adapters' released weights: "
+                        "ROADMAP.md queue 1 item 5b; the MAE warm-starts from run.load_*)")
     if _process_count() > 1:
         refusals.append(f"{_process_count()} processes (data-parallel training: ROADMAP.md "
                         "queue 1 item 4)")
@@ -100,6 +100,32 @@ def _process_count() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_world_size()
     return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _check_resume_loader(meta: dict, data_cfg) -> None:
+    """Refuse to resume an interrupted epoch under another loader than the
+    one recorded in its checkpoint.
+
+    The ``batches_done`` fast-forward replays the per-(seed, epoch) sample
+    order; both loaders produce the same order, but the recorded choice is
+    still enforced so that a later loader (or a version drift) can never
+    silently retrain or skip samples (the JAX package's
+    ``_check_resume_loader``).
+    """
+    saved = meta.get("loader")
+    if not (meta.get("interrupted") and saved):
+        return
+    from maestro_tpu_torch.data.loader import resolve_loader
+
+    current = resolve_loader(data_cfg)
+    if saved != current:
+        msg = (
+            f"checkpoint was interrupted under data.loader={saved!r} but "
+            f"this run resolves to {current!r}; set data.loader={saved!r} "
+            "to resume (the batches_done fast-forward assumes the recorded "
+            "loader's sample order)"
+        )
+        raise ValueError(msg)
 
 
 def phase_params(model: torch.nn.Module, phase: str) -> dict[str, torch.nn.Parameter]:
@@ -375,6 +401,7 @@ class Experiment:
         if resume_path:
             state = ckpt.restore_state(resume_path, state)
             meta = ckpt.load_meta(resume_path)
+            _check_resume_loader(meta, cfg.data)
             done = ckpt.checkpoint_epoch(resume_path)
             if done is not None:
                 # a regular checkpoint marks a COMPLETED epoch -> continue at
@@ -763,7 +790,7 @@ def run_experiment(
 
 
 def _run_phases(cfg, datasets, exp, phase_opts, results) -> None:
-    from maestro_tpu_torch.data.loader import make_loader
+    from maestro_tpu_torch.data.loader import make_loaders
 
     for phase, opt in phase_opts:
         if opt.epochs <= 0:
@@ -772,11 +799,7 @@ def _run_phases(cfg, datasets, exp, phase_opts, results) -> None:
             continue  # pretrain-only datasets (S2-NAIP)
         if phase == "pretrain" and exp.is_baseline:
             continue  # baseline adapters only probe/finetune
-        loaders = {}
-        for stage in ("train", "val", "test"):
-            _, loaders[stage] = make_loader(
-                datasets, cfg.data, stage, phase, opt.batch_size, seed=cfg.run.seed,
-            )
+        loaders = make_loaders(datasets, cfg.data, phase, opt.batch_size, seed=cfg.run.seed)
         resume = (
             cfg.run.fit_ckpt_path
             if cfg.run.fit_ckpt_path and cfg.run.fit_phase == phase
@@ -797,6 +820,9 @@ def _run_phases(cfg, datasets, exp, phase_opts, results) -> None:
             # saver thread + TB writer; re-created lazily per phase.
             # Trackers stay open across phases (closed by run_experiment).
             exp.close(trackers=False)
+            for loader in loaders.values():  # the worker processes, if any
+                if hasattr(loader, "close"):
+                    loader.close()
 
 
 # --------------------------------------------------------------------------

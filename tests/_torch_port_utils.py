@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from maestro_tpu_torch.port.from_jax import _DICT_ATTRS
+from maestro_tpu_torch.port.from_jax import flax_path
 
 
 @pytest.fixture(scope="module")
@@ -53,31 +53,25 @@ def synthetic_tree(model, seed: int, skip: tuple[str, ...] = ()) -> dict:
     ``model`` whose name starts with none of ``skip``: dense kernels
     Normal(0, 1/fan_in), scales 1 + 0.1 N, everything else 0.2 N (biases and
     mask tokens included, so every leaf takes part).  Built from the port's
-    names, the inverse of ``load_jax_params``'s mapping, which checks it back
-    strictly both ways; tracing the JAX package's ``init`` would cost seconds."""
+    names by ``port.from_jax.flax_path``, which ``load_jax_params`` checks
+    back strictly both ways; tracing the JAX package's ``init`` would cost
+    seconds."""
     rng = np.random.default_rng(seed)
     tree: dict = {}
     for name, p in model.named_parameters():
         if name.startswith(skip):
             continue
-        parts = name.split(".")
-        owner = model.get_submodule(".".join(parts[:-1]))
-        if parts[0] == "mask_tokens":
-            parts = [f"mask_token_{parts[1]}"]
-        elif parts[0] in _DICT_ATTRS:
-            parts = [f"{parts[0]}_{parts[1]}", *parts[2:]]
-        if parts[-1] == "weight":
-            parts[-1] = "kernel" if isinstance(owner, torch.nn.Linear) else "scale"
-        shape = tuple(p.shape[::-1]) if parts[-1] == "kernel" else tuple(p.shape)
+        path, transpose = flax_path(model, name)
+        shape = tuple(p.shape[::-1]) if transpose else tuple(p.shape)
         x = rng.normal(size=shape)
-        if parts[-1] == "kernel":
+        if path[-1] == "kernel":
             x = x * shape[0] ** -0.5
-        elif parts[-1].endswith("scale"):
+        elif path[-1].endswith("scale"):
             x = 1.0 + 0.1 * x
-        elif not parts[-1].startswith("mask_token"):
+        elif not path[-1].startswith("mask_token"):
             x = 0.2 * x
         node = tree
-        for key in parts[:-1]:
+        for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[parts[-1]] = x.astype(np.float32)
+        node[path[-1]] = x.astype(np.float32)
     return {"params": tree}

@@ -184,7 +184,7 @@ def test_attentive_reduce_fused_gradients_match_jax(monkeypatch):
     module with its Pallas pool in interpret mode."""
     from maestro_tpu.models.vit import AttentiveReduce as JReduce
     from maestro_tpu_torch.models.vit import AttentiveReduce
-    from maestro_tpu_torch.port.from_jax import _target_name, load_jax_params
+    from maestro_tpu_torch.port.from_jax import flax_names, load_jax_params
 
     monkeypatch.setattr(JP, "INTERPRET", True)
     b, d, l, e, heads = 2, 6, 40, 256, 8
@@ -211,8 +211,9 @@ def test_attentive_reduce_fused_gradients_match_jax(monkeypatch):
     grads = dict(mod.named_parameters())
     leaves = jax.tree_util.tree_flatten_with_path(want_gp["params"])[0]
     assert len(leaves) == len(grads) == 6
+    names = flax_names(mod)
     for path, g in leaves:
-        name, transpose = _target_name(tuple(str(k.key) for k in path))
+        name, transpose = names[tuple(str(k.key) for k in path)]
         want = np.asarray(g, np.float32)
         _assert_grads([grads[name].grad], [want.T if transpose else want], (name,))
 

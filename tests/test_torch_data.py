@@ -8,12 +8,17 @@ batch is bit-identical to the JAX package's (the port reads its tables with
 the standard library, the JAX package with pandas).  Then the loader's own
 contract: ``set_epoch`` / ``skip_batches``, an epoch that reads each
 sample once in its (seed, epoch) order, a worker exception that surfaces, an
-early break that leaks no thread, ``pin_loader`` (``data.loader=grain``
-raises: grain imports JAX), and a default loader that loads no JAX.
+early break that leaks no thread, worker processes that outlive an early exit
+until ``close()`` and serve a phase's three splits, ``pin_loader`` ("auto" and
+"grain" give the worker processes of ``data/mp_loader.py`` on a host with
+few cores), and a default loader that loads no JAX, in the parent or in a
+worker.  The batch comparisons run under both loaders: the thread pool and
+the worker processes.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import threading
 import time
 from itertools import islice
@@ -27,7 +32,14 @@ from maestro_tpu.data import datasets as JD
 from maestro_tpu.data.loader import make_loader as j_make_loader
 from maestro_tpu_torch.conf import DataConfig, DatasetsConfig
 from maestro_tpu_torch.data import datasets as TD
-from maestro_tpu_torch.data.loader import EOBatchLoader, make_loader, pin_loader
+from maestro_tpu_torch.data.loader import (
+    EOBatchLoader,
+    epoch_batches,
+    make_loader,
+    make_loaders,
+    pin_loader,
+)
+from maestro_tpu_torch.data.mp_loader import ProcessBatchLoader
 from tests.fixtures import (
     write_flair_fixture,
     write_pastis_fixture,
@@ -70,10 +82,13 @@ def _configs(key, root):
     return pair
 
 
-def _data_cfgs():
+LOADERS = ("threads", "grain")  # the thread pool and the worker processes
+
+
+def _data_cfgs(loader="threads"):
     kw = {"use_transform": True, "random_dates": True, "random_crop": True,
-          "num_workers": 2, "loader": "threads"}
-    return JDataConfig(**kw), DataConfig(**kw)
+          "num_workers": 2}
+    return JDataConfig(loader="threads", **kw), DataConfig(loader=loader, **kw)
 
 
 def _assert_same(got: dict, want: dict, where: str) -> None:
@@ -89,14 +104,16 @@ CASES = [(key, phase) for key in FIXTURES for phase in PHASES
          if key != "s2naip" or phase == "pretrain"]
 
 
+@pytest.mark.parametrize("loader", LOADERS)
 @pytest.mark.parametrize(("key", "phase"), CASES)
-def test_samples_and_batches_match_jax(roots, key, phase):
+def test_samples_and_batches_match_jax(roots, key, phase, loader):
     jcfg, tcfg = _configs(key, roots[key])
-    jdata, tdata = _data_cfgs()
+    jdata, tdata = _data_cfgs(loader)
     compared = 0
     for stage in STAGES:
         jds, jl = j_make_loader(jcfg, jdata, stage, phase, BATCH, seed=5)
         tds, tl = make_loader(tcfg, tdata, stage, phase, BATCH, seed=5)
+        assert isinstance(tl, ProcessBatchLoader if loader == "grain" else EOBatchLoader)
         assert len(tds) == len(jds) and len(tl) == len(jl), stage
         for epoch in (0, 1):
             jds.set_epoch(epoch)
@@ -108,6 +125,8 @@ def test_samples_and_batches_match_jax(roots, key, phase):
             tl.set_epoch(epoch)
             for n, (tb, jb) in enumerate(zip(islice(tl, MAX_BATCHES), islice(jl, MAX_BATCHES))):
                 _assert_same(tb, jb, f"{stage} epoch {epoch} batch {n}")
+        if hasattr(tl, "close"):
+            tl.close()
     assert compared > 0
 
 
@@ -133,24 +152,26 @@ def test_tables_read_as_pandas_reads_them(roots, key):
                     np.testing.assert_array_equal(a, b)
 
 
-def _treesat_loader(roots, **kw):
+def _treesat_loader(roots, loader="threads"):
     _, tcfg = _configs("treesat", roots["treesat"])
-    _, loader = make_loader(tcfg, DataConfig(num_workers=1, loader="threads"), "train",
-                            "pretrain", 2, seed=0, **kw)
-    return loader
+    _, out = make_loader(tcfg, DataConfig(num_workers=1 if loader == "threads" else 2,
+                                          loader=loader), "train", "pretrain", 2, seed=0)
+    return out
 
 
-def test_set_epoch_and_skip_batches(roots):
+@pytest.mark.parametrize("loader", LOADERS)
+def test_set_epoch_and_skip_batches(roots, loader):
     """Per-epoch order is a pure function of (seed, epoch); skip_batches
-    fast-forwards without changing the remaining order, and is consumed."""
-    a, b = _treesat_loader(roots), _treesat_loader(roots)
+    fast-forwards without changing the remaining order, and is consumed;
+    the worker processes read what the thread pool reads."""
+    a, b = _treesat_loader(roots, loader), _treesat_loader(roots)
     a.set_epoch(3)
     b.set_epoch(3)
     batches_a, batches_b = list(a), list(b)
     assert len(batches_a) >= 2
     for x, y in zip(batches_a, batches_b):
         _assert_same(x, y, "same epoch")
-    c = _treesat_loader(roots)
+    c = _treesat_loader(roots, loader)
     c.set_epoch(3)
     c.skip_batches = 1
     skipped = list(c)
@@ -159,6 +180,10 @@ def test_set_epoch_and_skip_batches(roots):
     assert len(list(c)) == len(batches_a)
     c.set_epoch(4)
     assert any(not np.array_equal(x["s2"], y["s2"]) for x, y in zip(list(c), batches_a))
+    for loader_ in (a, c):
+        if hasattr(loader_, "close"):
+            loader_.close()
+    assert not multiprocessing.active_children()
 
 
 class _Indexed:
@@ -196,6 +221,23 @@ def test_worker_exception_surfaces():
         list(loader)
 
 
+def test_worker_process_exception_surfaces(tmp_path):
+    """A read that fails in a worker process is raised in the consumer,
+    chained to the worker's traceback, and the workers are stopped."""
+    write_treesat_fixture(tmp_path, num_tiles=3)
+    _, tcfg = _configs("treesat", tmp_path)
+    dataset, loader = make_loader(tcfg, DataConfig(num_workers=2, loader="grain"), "train",
+                                  "finetune", 2, seed=0)
+    # the aerial raster of a sample of the first batch is missing (not the
+    # first sample's: the parent reads that one to lay out the shared slots)
+    (idx,) = [i for i in epoch_batches(len(dataset), 2, True, True, 0, 0)[0] if i != 0][:1]
+    (tmp_path / "aerial" / dataset.aerial_names[idx]).unlink()
+    with pytest.raises(Exception, match="tile_") as info:
+        list(loader)
+    assert "_read_into" in str(info.value.__cause__)  # the worker's own traceback
+    assert not multiprocessing.active_children()
+
+
 def test_early_break_leaks_no_thread():
     before = threading.active_count()
     for _ in range(5):
@@ -209,19 +251,73 @@ def test_early_break_leaks_no_thread():
     assert threading.active_count() <= before
 
 
-@pytest.mark.parametrize(("loader", "want"), [
-    ("auto", "threads"), ("threads", "threads"),
-    ("grain", NotImplementedError), ("processes", ValueError)])
-def test_pin_loader(monkeypatch, loader, want):
-    """The choice is resolved and written back.  "auto" is the thread pool
-    even on a host with fewer cores than twice the default 12 workers (where
-    the JAX package picks grain); "grain" raises, naming its ROADMAP item."""
+@pytest.mark.parametrize("exit_by", ["break", "preempted"])
+def test_early_exit_leaves_no_process(roots, exit_by):
+    """An epoch of the worker processes left early (a ``break``, or the
+    runtime's ``Preempted`` raised in the loop) keeps the workers: the next
+    pass reads its own batches on them, whatever the early one left queued.
+    ``close()``, which the runtime calls at a phase's end and on
+    ``Preempted``, stops every worker."""
+    from maestro_tpu_torch.train.preempt import Preempted
+
+    loader = _treesat_loader(roots, "grain")
+    loader.set_epoch(0)
+    want = list(loader)
+    assert len(want) == len(loader)
+    workers = {p.pid for p in multiprocessing.active_children()}
+    assert len(workers) == loader.num_workers
+    loader.set_epoch(1)
+    if exit_by == "break":
+        for _batch in loader:
+            break
+    else:
+        with pytest.raises(Preempted):
+            for _batch in loader:
+                raise Preempted("pretrain", "checkpoint")
+    assert {p.pid for p in multiprocessing.active_children()} == workers
+    loader.set_epoch(0)
+    got = list(loader)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        _assert_same(x, y, "after an early exit")
+    loader.close()
+    assert not multiprocessing.active_children()
+
+
+def test_phase_loaders_share_workers(roots):
+    """``make_loaders`` gives a phase's train, val and test loaders one set
+    of worker processes: read one at a time, a pass left early included,
+    each yields what the thread loaders yield."""
+    _, tcfg = _configs("treesat", roots["treesat"])
+    grain = make_loaders(tcfg, DataConfig(num_workers=2, loader="grain"), "finetune", 2)
+    threads = make_loaders(tcfg, DataConfig(num_workers=2, loader="threads"), "finetune", 2)
+    assert len({id(lo.group) for lo in grain.values()}) == 1
+    _assert_same(next(iter(grain["val"])), next(iter(threads["val"])), "val, read early")
+    for stage in ("train", "val", "test", "train"):
+        got, want = list(grain[stage]), list(threads[stage])
+        assert len(got) == len(want) == len(grain[stage]) > 0
+        for x, y in zip(got, want):
+            _assert_same(x, y, stage)
+        assert len(multiprocessing.active_children()) == 2
+    for loader in grain.values():
+        loader.close()
+    assert not multiprocessing.active_children()
+
+
+@pytest.mark.parametrize(("loader", "workers", "want"), [
+    ("auto", 12, "grain"), ("auto", 2, "threads"), ("threads", 12, "threads"),
+    ("grain", 12, "grain"), ("processes", 12, ValueError)])
+def test_pin_loader(monkeypatch, loader, workers, want):
+    """The choice is resolved and written back.  On a host with fewer cores
+    than twice the workers, "auto" takes the worker processes ("grain", as
+    the JAX package names its multiprocess pipeline) for a pool of 4 or
+    more, the thread pool for a smaller one."""
     monkeypatch.setattr("os.cpu_count", lambda: 8)
-    cfg = DataConfig(loader=loader)
+    cfg = DataConfig(loader=loader, num_workers=workers)
     if isinstance(want, str):
         assert pin_loader(cfg) == want == cfg.loader
         return
-    with pytest.raises(want, match="ROADMAP.md queue 1 item 9" if loader == "grain" else loader):
+    with pytest.raises(want, match=loader):
         pin_loader(cfg)
 
 
@@ -233,15 +329,21 @@ from maestro_tpu_torch.data.loader import make_loader
 cfg = DatasetsConfig(root_dir=sys.argv[1], name_dataset="treesatai_ts")
 cfg.dataset.rel_dir = ""
 _, loader = make_loader(cfg, DataConfig(), "train", "pretrain", 2)
-next(iter(loader))
-print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "grain", "maestro_tpu")))
+batches = iter(loader)
+next(batches)
+probe = "sorted(m for m in __import__('sys').modules if m.split('.')[0] in {0})"
+roots = ("jax", "grain", "maestro_tpu")
+print(type(loader).__name__)
+print(eval(probe.format(roots)))
+print(loader.group._pool.submit(eval, probe.format(roots)).result())
+loader.close()
 """
 
 
 def test_default_loader_loads_no_jax(roots):
     """The port's loader with its default options (loader "auto", 12
-    workers) on an 8-core host reads a batch without importing JAX, grain or
-    the JAX package."""
+    workers) on an 8-core host reads a batch in worker processes without
+    importing JAX, grain or the JAX package, in the parent or in a worker."""
     import subprocess
     import sys
 
@@ -250,4 +352,4 @@ def test_default_loader_loads_no_jax(roots):
     out = subprocess.run([sys.executable, "-c", _NO_JAX, str(roots["treesat"])],
                          capture_output=True, text=True, timeout=120, check=True,
                          cwd=Path(__file__).resolve().parents[1])
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+    assert out.stdout.strip().splitlines()[-3:] == ["ProcessBatchLoader", "[]", "[]"]

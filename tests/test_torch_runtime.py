@@ -18,8 +18,9 @@ The rest runs the port alone: warm start by ``run.load_name``, resume by
 uninterrupted run), ``run.eval_only``, the ``trainer.input_dtype`` staging
 matrix (tests/test_input_staging.py's), ``parse_cli`` against the root
 ``main.py``'s, the knobs that are not ported, the CUDA default of every
-entry point, and the CLI end to end with its files (config, metrics.jsonl,
-confusion matrices, TensorBoard events with images).
+entry point, the refusal to resume under another loader, a DINOv2 adapter
+through probe and finetune, and the CLI end to end with its files (config,
+metrics.jsonl, confusion matrices, TensorBoard events with images).
 """
 
 from __future__ import annotations
@@ -325,6 +326,40 @@ def test_resume_after_sigterm_is_bit_identical(treesat_root, tmp_path):
             assert torch.equal(got["opt_state"]["moments"][n][k], v), (n, k)
 
 
+def test_resume_refuses_other_loader():
+    """An interrupted checkpoint records its loader; resuming under another
+    one fails loudly (the JAX package's test of the same name)."""
+    meta = {"interrupted": True, "batches_done": 7, "loader": "grain"}
+    with pytest.raises(ValueError, match="data.loader"):
+        TR._check_resume_loader(meta, TC.DataConfig(loader="threads"))
+    TR._check_resume_loader(meta, TC.DataConfig(loader="grain"))  # the same: resumes
+    # a completed epoch's checkpoint has no fast-forward: any loader resumes it
+    TR._check_resume_loader({"loader": "grain"}, TC.DataConfig(loader="threads"))
+
+
+def test_baseline_probe_and_finetune(treesat_root, tmp_path):
+    """A DINOv2 adapter through ``run_experiment`` (tests/
+    test_baseline_runtime.py's run): no pretrain phase, then probe and
+    finetune with layer-wise LR decay, finite losses and metrics."""
+    cfg, datasets = _config(TC, treesat_root, tmp_path, "dinov2", pretrain=1, probe=1,
+                            finetune=1)
+    ds = datasets.treesatai_ts
+    for m in ("s2", "s1_asc", "s1_des"):
+        getattr(ds, m).image_size = 28
+    ds.aerial.image_size = 224
+    ds.__post_init__()
+    cfg.model = TC.ModelConfig(model="dinov2", model_size="micro", fusion_mode="shared",
+                               use_ema=False)
+    cfg.opt_finetune.lw_decay = 0.75
+    results = TR.run_experiment(cfg, datasets, tmp_path / "work", device="cpu")
+    assert set(results) == {"probe", "finetune"}  # baselines skip pretraining
+    wf1 = results["finetune"].val_metrics["treesat_mlc_thresh/weighted_f1"]
+    assert 0.0 <= wf1 <= 1.0
+    for phase in ("probe", "finetune"):
+        assert np.isfinite(results[phase].history[0]["train/loss_pred"])
+        assert np.isfinite(results[phase].val_metrics["loss_pred"])
+
+
 def test_eval_only_scores_a_checkpoint(treesat_root, tmp_path):
     """eval_only scores the loaded weights without training: the probe test
     metrics of a run equal those of an eval-only run over its checkpoint."""
@@ -418,7 +453,6 @@ def test_parse_cli_matches_root_main(argv):
     ("trainer.mesh_model=2", NotImplementedError),
     ("trainer.mesh_replica=2", NotImplementedError),
     ("trainer.fsdp=true", NotImplementedError),
-    ("model.model=dinov2", NotImplementedError),
     ("model.pretrained_path=/weights", NotImplementedError),
     ("WORLD_SIZE=2", NotImplementedError),  # a launcher's second process
 ])

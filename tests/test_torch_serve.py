@@ -218,14 +218,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_factory_builds_the_mae_and_refuses_baselines():
+    """The factory builds the MAE; a baseline adapter is refused the MAE's
+    group fusion and builds with a fusion mode of its own."""
     ds = DatasetsConfig(name_dataset="treesatai_ts")
     cfg = ExperimentConfig(model=_micro_cfg(ModelConfig))
     cfg.trainer.compute_dtype = "float32"
     model, plan, is_baseline = build_experiment_model(ds, cfg, device="cpu")
     assert not is_baseline and model.dtype == torch.float32 and plan is model.plan
+    # a baseline adapter refuses the MAE's group fusion, and builds with its own
     cfg.model.model = "dinov2"
-    with pytest.raises(NotImplementedError, match="dinov2"):
+    with pytest.raises(ValueError, match="DINOv2 supports shared/monotemp"):
         build_experiment_model(ds, cfg, device="cpu")
+    cfg.model.fusion_mode = "shared"
+    model, plan, is_baseline = build_experiment_model(
+        DatasetsConfig(name_dataset="pastis_hd"), cfg, device="cpu")
+    assert is_baseline and model.dtype == torch.float32 and plan is model.plan
 
 
 def test_head_split_override_keeps_parameter_shapes():

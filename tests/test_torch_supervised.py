@@ -49,7 +49,7 @@ from maestro_tpu_torch.conf import (
 from maestro_tpu_torch.models import heads as TH
 from maestro_tpu_torch.models import mae as TM
 from maestro_tpu_torch.models.mae import HeadSpec, build_model
-from maestro_tpu_torch.port.from_jax import _target_name, load_jax_params
+from maestro_tpu_torch.port.from_jax import flax_names, load_jax_params
 from maestro_tpu_torch.specs.fusion import build_fusion_plan
 from maestro_tpu_torch.train import optim as TO
 from maestro_tpu_torch.train import steps as TS
@@ -107,10 +107,10 @@ def _jax_grad_fn(jmodel, phase):
 def _assert_grads_match(model, want_grads) -> None:
     """Every gradient leaf within GRAD_TOL of that leaf's max |grad|; a
     parameter autograd left without a gradient must have a zero JAX one."""
-    params = dict(model.named_parameters())
+    params, names = dict(model.named_parameters()), flax_names(model)
     compared = 0
     for path, g in jax.tree_util.tree_flatten_with_path(want_grads["params"])[0]:
-        name, transpose = _target_name(tuple(str(k.key) for k in path))
+        name, transpose = names[tuple(str(k.key) for k in path)]
         want = np.asarray(g, np.float32)
         want = want.T if transpose else want
         got = params[name].grad
@@ -270,8 +270,9 @@ def test_ema_and_eval_steps_match_jax(monkeypatch):
     new_j = JS.ema_update(jstate, 0.8).ema_params
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     ema_update(state, 0.8)
+    names = flax_names(model)
     for path, want in jax.tree_util.tree_flatten_with_path(new_j["params"])[0]:
-        name, transpose = _target_name(tuple(str(k.key) for k in path))
+        name, transpose = names[tuple(str(k.key) for k in path)]
         want = np.asarray(want)
         np.testing.assert_allclose(to_np(state.ema[name]), want.T if transpose else want,
                                    rtol=1e-6, atol=1e-7, err_msg=name)

@@ -48,7 +48,7 @@ from maestro_tpu_torch.models.mae import MAE_ARCHS, build_model
 from maestro_tpu_torch.ops import attention as TA
 from maestro_tpu_torch.ops import fused_loss as TFL
 from maestro_tpu_torch.ops import masking as TMK
-from maestro_tpu_torch.port.from_jax import _target_name, load_jax_params
+from maestro_tpu_torch.port.from_jax import flax_names, load_jax_params
 from maestro_tpu_torch.serve import batch_to_device
 from maestro_tpu_torch.specs.fusion import build_fusion_plan
 from maestro_tpu_torch.train import optim as TO
@@ -164,10 +164,10 @@ def _port_loss(model, plan, batch, fused: bool) -> torch.Tensor:
 def _assert_grads_match(model, want_grads, min_leaves: int = 51) -> None:
     """Every gradient leaf within GRAD_TOL of that leaf's max |grad|; the
     heads (absent from the JAX tree) get none."""
-    params = dict(model.named_parameters())
+    params, names = dict(model.named_parameters()), flax_names(model)
     compared = 0
     for path, g in jax.tree_util.tree_flatten_with_path(want_grads["params"])[0]:
-        name, transpose = _target_name(tuple(str(k.key) for k in path))
+        name, transpose = names[tuple(str(k.key) for k in path)]
         want = np.asarray(g, np.float32)
         want = want.T if transpose else want
         got = params[name].grad
