@@ -10,7 +10,7 @@ reports the attention and pool kernels' registers, shared memory and spills
 from the ``ptxas`` log), holds each against its plain PyTorch version on the card (the
 attention kernels also at one row past a 128-row tile for every head dim, at
 the full-length trunk at batch 1, at the baseline adapters' lengths and heads,
-and twice on the same inputs: dk and dv
+at the shapes the releases' head splits add, and twice on the same inputs: dk and dv
 bit-identical, dq within 1 bf16 ulp of max(|dq|, rms(dq)); the pool
 backward twice as well: dx and the parameter gradients bit-identical), then
 drives the port's main paths with seeded random weights and inputs (MAE
@@ -63,10 +63,26 @@ parameters):
   same batch, the device's idle share over a train epoch, peak memory, the
   loader alone (threads and processes), the host's cast and pinned copy
   alone, and the checkpoint saves' blocking and background times;
+* the released weights (phase ``released``) — a seeded MAE medium release
+  in the reference's lightning layout through the ``port_checkpoint`` CLI
+  (every tensor bit-identical, only the heads fresh, the reference head
+  splits 12 x 64 / 16 x 32 printed and recorded); pretrain and finetune
+  steps from it at those splits, kernel path against plain path at batch 8
+  and timed at 48 and 32; the attention forward and backward timed at
+  ``[48, 1024, 16, 32]`` and ``[32, 1880, 12, 64]`` beside SDPA; the CLI from
+  the ported weights over the same tiles (pretrain 1, finetune 1; launches
+  per pass, no plain version) and ``scripts/predict`` from its finetune
+  checkpoint (files, dtypes, EMA weights, launches, tiles/s); then each
+  adapter's default release (DINOv2-L, DOFA-B, CROMA-B, SatMAE-L, Prithvi-L
+  v2 TL) drawn from a seed in its release layout, ported by the ``port_fm``
+  CLI (manifest clean, no backbone parameter fresh), one probe and one
+  finetune step from it at batch 8, kernel path against plain path;
 * a baseline through the CLI — ``model.model=dinov2 model.model_size=large
   model.fusion_mode=shared`` over the same tiles (aerial 448 px, S2 and S1
-  28 px), batch 8, probe 1 epoch and finetune 1: each kernel's launches per
-  pass equal to batches x launches a batch, and no plain version run.
+  28 px), batch 8, probe 1 epoch and finetune 1, warm-started through
+  ``model.pretrained_path`` from the DINOv2-L release ported above: each
+  kernel's launches per pass equal to batches x launches a batch, and no
+  plain version run.
 
 The loss forward of a pretrain step is one grouped launch over the five
 modalities; it is also held against its plain version at the five FLAIR
@@ -155,6 +171,15 @@ ATTN_CHECK_BATCH = {(6, 128): 8}  # the serving path's heads at its largest batc
 # aerial and DEM)
 ADAPTER_FWD_LENGTHS = (2, 5, 17, 101, 122, 1025, 1297)
 ADAPTER_FWD_HEADS = ((16, 64), (12, 64))
+# the shapes a MAESTRO release runs at its reference head splits (encoder 12 x 64,
+# decoder 16 x 32; phase ``released``), forward and backward: the decoders at full
+# stream length (aerial 1024, S2 400), the encoders at kept tokens (the aerial's 256,
+# the trunk's 470), the finetune trunk at full length.  Their inputs come from a
+# generator of their own (RELEASED_SEED), so that the other checks draw what they
+# drew before these were added
+RELEASED_ATTN_SHAPES = ((8, 1024, 16, 32), (8, 400, 16, 32), (8, 256, 12, 64),
+                        (8, 470, 12, 64), (2, 1880, 12, 64))
+RELEASED_SEED = 12
 # the pretrain path's attention shapes at batch 8 (kept tokens 50..470 in the
 # encoders and the trunk, full lengths in the decoders), then the other head
 # dims, a length past 1536 and the full-length trunk of the supervised steps
@@ -511,6 +536,28 @@ def attention_fwd_checks(attention, gen) -> float:
                 cases += 1
                 if dtype == torch.bfloat16:
                     attn_err = max(attn_err, max_abs)
+    rel_gen = torch.Generator(device="cuda").manual_seed(RELEASED_SEED)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, l, h, d in RELEASED_ATTN_SHAPES:
+            q, k, v = qkv_views(b, l, h, d, dtype, rel_gen)
+            got = attention.mha_blhd(q, k, v, d**-0.5)
+            _, lse = attention._fwd(q, k, v, d**-0.5, with_lse=True)
+            torch.cuda.synchronize()
+            max_abs, over = check_close(
+                f"attention {[b, l, h, d]} {dtype}", got,
+                attention.mha_blhd_plain(q, k, v, d**-0.5), ATTN_TOL[dtype])
+            lse_err = (lse - attention.logsumexp_plain(q, k, d**-0.5)).abs().max().item()
+            if not lse_err <= LSE_ABS_TOL:
+                raise AssertionError(f"attention {[b, l, h, d]} {dtype}: logsumexp off by {lse_err}")
+            emit({"check": "flash_attention_fwd", "dtype": str(dtype), "shape": [b, l, h, d],
+                  "layout": "strided qkv view", "use": "released weights, reference splits",
+                  "tolerance_x_abs_plus_rms": ATTN_TOL[dtype], "max_abs_err": max_abs,
+                  "max_err_over_tolerance": over, "lse_max_abs_err": lse_err,
+                  "lse_abs_tolerance": LSE_ABS_TOL})
+            del got, lse
+            cases += 1
+            if dtype == torch.bfloat16:
+                attn_err = max(attn_err, max_abs)
     # contiguous q, k, v too
     q, k, v = (t.contiguous() for t in qkv_views(2, 400, 6, 128, torch.bfloat16, gen))
     check_close("attention contiguous", attention.mha_blhd(q, k, v, 128**-0.5),
@@ -535,11 +582,14 @@ def attention_bwd_checks(attention, gen) -> float:
     """Backward kernel vs autograd through the plain version in fp32, on the
     same inputs; returns the bf16 max abs err over dq, dk, dv."""
     bwd_err = 0.0
+    rel_gen = torch.Generator(device="cuda").manual_seed(RELEASED_SEED + 1)
+    cases = [(shape, gen) for shape in BWD_CHECK_SHAPES]
+    cases += [(shape, rel_gen) for shape in RELEASED_ATTN_SHAPES]
     for dtype in (torch.bfloat16, torch.float32):
-        for b, l, h, d in BWD_CHECK_SHAPES:
-            qkv = qkv_fused(b, l, h, d, dtype, gen).requires_grad_(True)
+        for (b, l, h, d), draw in cases:
+            qkv = qkv_fused(b, l, h, d, dtype, draw).requires_grad_(True)
             out = attention.mha_qkv(qkv, d**-0.5)
-            dout = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            dout = torch.randn(out.shape, generator=draw, device="cuda").to(dtype)
             (got,) = torch.autograd.grad(out, qkv, dout)
             torch.cuda.synchronize()
             ref_in = qkv.detach().float().requires_grad_(True)
@@ -567,7 +617,7 @@ def attention_bwd_checks(attention, gen) -> float:
                                dout.float())
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         check_close(f"attention bwd {name} separate q, k, v", g, w, ATTN_BWD_TOL[torch.bfloat16])
-    emit({"check": "flash_attention_bwd", "cases": 2 * len(BWD_CHECK_SHAPES) + 1, "ok": True})
+    emit({"check": "flash_attention_bwd", "cases": 2 * len(cases) + 1, "ok": True})
     return bwd_err
 
 
@@ -815,9 +865,22 @@ def serving_phase(model, batches, predict, attention, attn_pool, vit, want_profi
     return launches
 
 
-def train_phase(datasets, card: str, want_profile: bool) -> dict:
+def warm_start(model, path) -> None:
+    """Load a ported checkpoint strict=False (as ``run.load_ckpt_path`` does)
+    and require every parameter but the heads to come from it."""
+    from maestro_tpu_torch.train import checkpoint as ckpt
+
+    unmatched: list = []
+    ckpt.load_weights(path, model, unmatched)
+    if [n for n in unmatched if not n.startswith("heads.")]:
+        raise AssertionError(f"{path} does not cover {unmatched[:5]}")
+
+
+def train_phase(datasets, card: str, want_profile: bool, splits=None, warm=None) -> dict:
     """Pretrain steps: kernel path vs plain path at batch 8 (counts from 0),
-    then timed steps at the JAX bench's batch, TRAIN_BATCH."""
+    then timed steps at the JAX bench's batch, TRAIN_BATCH.  ``splits``: head
+    split overrides of the model config; ``warm``: a checkpoint the weights
+    start from (else seeded random)."""
     from maestro_tpu_torch.conf import MaskConfig, ModelConfig, OptPretrainConfig
     from maestro_tpu_torch.models import vit
     from maestro_tpu_torch.models.mae import build_model
@@ -828,12 +891,16 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
     from maestro_tpu_torch.utils.flops import decoder_mlp_undercount, mae_model_flops
     from maestro_tpu_torch.utils.testing import make_synthetic_batch
 
+    splits = splits or {}
+
     def fresh(batch_size: int):
         model, plan = build_model(
             datasets, MaskConfig(),
-            ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3),
+            ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3, **splits),
             dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(0),
         )
+        if warm:
+            warm_start(model, warm)
         tx = make_optimizer(OptPretrainConfig(batch_size=batch_size), "pretrain", 1000, model)
         return model, plan, TrainState.create(model, tx), make_pretrain_step(model, plan, tx)
 
@@ -842,11 +909,11 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
                 fused_loss.fwd_launch_count, fused_loss.bwd_launch_count)
 
     def run(steps: int, state, step, batch):
-        """Losses and launches per step; the update of step 1 and the norm of
-        the trained parameters before it."""
+        """Losses and launches per step; the update of step 1, the norm of the
+        trained parameters before it and the step-1 gradients (fp32, flat)."""
         trained = [p for g in state.tx.adamw.param_groups for p in g["params"]]
         p0 = torch.cat([p.detach().flatten() for p in trained])
-        losses, per_step, update = [], [], None
+        losses, per_step, update, grads = [], [], None, None
         for i in range(steps):
             before = counts()
             state, logs = step(state, batch, 0)
@@ -854,15 +921,20 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
             per_step.append([a - b for a, b in zip(counts(), before)])
             if i == 0:
                 update = torch.cat([p.detach().flatten() for p in trained]) - p0
-        return losses, update, per_step, p0.norm().item()
+                grads = torch.cat([torch.zeros(p.numel(), device=p.device) if p.grad is None
+                                   else p.grad.detach().float().flatten() for p in trained])
+        return losses, update, per_step, p0.norm().item(), grads
 
     # ---- (a) kernel path vs plain path, same weights and masks, batch 8
     batch = make_synthetic_batch(datasets.dataset, CHECK_BATCH, seed=0)
     model, plan, state, step = fresh(CHECK_BATCH)
+    label = {"head_splits": f"{model.arch.heads} x {model.arch.dim_head}, decoder "
+                            f"{model.arch.decoder_heads} x {model.arch.decoder_dim_head}",
+             "weights": f"ported ({warm})" if warm else "seeded random"}
     for name in ("launch_count", "bwd_launch_count"):
         setattr(attention, name, 0)
     fused_loss.fwd_launch_count = fused_loss.bwd_launch_count = 0
-    losses_k, update_k, per_step, norm0 = run(3, state, step, batch)
+    losses_k, update_k, per_step, norm0, grads_k = run(3, state, step, batch)
     launches = dict(zip(("attention_fwd", "attention_bwd", "loss_fwd", "loss_bwd"), counts()))
     want = [ATTN_PER_STEP, ATTN_PER_STEP, LOSS_FWD_PER_STEP, LOSS_BWD_PER_STEP]
     if any(n != want for n in per_step) or 0 in launches.values():
@@ -873,7 +945,7 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
     vit.mha_qkv = attention.mha_qkv_plain
     fused_loss.masked_patchnorm_sums_multi = fused_loss.masked_patchnorm_sums_multi_plain
     try:
-        losses_p, update_p, per_step_p, _ = run(3, state, step, batch)
+        losses_p, update_p, per_step_p, _, grads_p = run(3, state, step, batch)
     finally:
         vit.mha_qkv, fused_loss.masked_patchnorm_sums_multi = kernel_fns
     if any(any(n) for n in per_step_p):
@@ -881,19 +953,24 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
     rel_k = update_k.norm().item() / norm0
     rel_p = update_p.norm().item() / norm0
     cos = torch.nn.functional.cosine_similarity(update_k, update_p, dim=0).item()
+    grad_cos = torch.nn.functional.cosine_similarity(grads_k, grads_p, dim=0).item()
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
     emit({"train_agreement": {
-        "batch": CHECK_BATCH, "loss_kernel_path": losses_k, "loss_plain_path": losses_p,
+        **label, "batch": CHECK_BATCH, "loss_kernel_path": losses_k, "loss_plain_path": losses_p,
         "loss_rel_err": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
         "step1_update_rel_norm_kernel": rel_k, "step1_update_rel_norm_plain": rel_p,
         "update_rel_norm_rtol": STEP_UPDATE_RTOL, "step1_update_cosine": cos,
+        "step1_grad_cosine": grad_cos, "step1_grad_norm_kernel": grads_k.norm().item(),
+        "step1_grad_cosine_min": GRAD_COS_MIN,
         "launches_per_step": dict(zip(("attention_fwd", "attention_bwd", "loss_fwd",
                                        "loss_bwd"), per_step[0]))}})
     if not all(e <= STEP_LOSS_RTOL for e in loss_rel) or not all(map(math.isfinite, losses_k)):
         raise AssertionError(f"train losses disagree: {losses_k} vs {losses_p}")
     if not abs(rel_k - rel_p) <= STEP_UPDATE_RTOL * rel_p:
         raise AssertionError(f"step-1 updates disagree: {rel_k} vs {rel_p}")
-    del model, state, step, update_k, update_p
+    if not (grads_k.norm().item() > 0 and grad_cos >= GRAD_COS_MIN):
+        raise AssertionError(f"step-1 gradient cosine {grad_cos} (kernel vs plain path)")
+    del model, state, step, update_k, update_p, grads_k, grads_p
     torch.cuda.empty_cache()
 
     # ---- (b) timed steps at the bench's batch (48); an OOM fails the script.
@@ -938,8 +1015,8 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
     flops = mae_model_flops(plan, model.arch, model.inter_depth, "pretrain", bsz)
     flops_real = flops + decoder_mlp_undercount(plan, model.arch, bsz)
     peak = next((v for k, v in BF16_PEAK_BY_NAME.items() if k in card), None)
-    emit({"train_step": {
-        "batch": bsz, "remat": False, "step_ms_median": step_ms, "step_ms_all": times,
+    timed = {
+        **label, "batch": bsz, "remat": False, "step_ms_median": step_ms, "step_ms_all": times,
         "host_clock_ms_per_step": wall_ms,
         "step_ms_numpy_batch_and_loss_read_every_step": synced,
         "tokens_per_sample": tokens, "tokens_per_s": tokens * bsz / (step_ms / 1e3),
@@ -947,19 +1024,21 @@ def train_phase(datasets, card: str, want_profile: bool) -> dict:
         "peak_bf16_flops": peak, "peak_from": card,
         "mfu": None if peak is None else flops / (step_ms / 1e3) / peak,
         "mfu_real_decoder_mlp": None if peak is None else flops_real / (step_ms / 1e3) / peak,
-        "peak_memory_bytes": peak_mem, "losses": losses}})
+        "peak_memory_bytes": peak_mem, "losses": losses}
+    emit({"train_step": timed})
     if want_profile:
         emit({"profile": {"path": "train", "batch": bsz,
                           **profile_device(lambda: step(state, batch, 0), step_ms)}})
     del model, state, step
     torch.cuda.empty_cache()
-    return {"launches": launches, "batch": bsz, "plan": plan}
+    return {"launches": launches, "batch": bsz, "plan": plan, "timed": timed}
 
 
-def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
+def supervised_phase(datasets, card: str, want_profile: bool, splits=None, warm=None,
+                     phases=("finetune", "probe")) -> dict:
     """Finetune and probe steps: kernel path vs plain path at batch 8 (counts
     from 0 for each path), then timed steps at the JAX bench's batch, the EMA
-    update and the EMA eval step."""
+    update and the EMA eval step.  ``splits``, ``warm``: as ``train_phase``'s."""
     from maestro_tpu_torch.conf import MaskConfig, ModelConfig, OptFinetuneConfig, OptProbeConfig
     from maestro_tpu_torch.models import heads, vit
     from maestro_tpu_torch.models.mae import build_model
@@ -975,14 +1054,17 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
     from maestro_tpu_torch.utils.testing import make_synthetic_batch
 
     opt_cls = {"finetune": OptFinetuneConfig, "probe": OptProbeConfig}
+    splits = splits or {}
 
     def fresh(phase: str, batch_size: int, use_ema: bool = False):
         model, plan = build_model(
             datasets, MaskConfig(),
             ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3,
-                        seg_chunk_rows=SUP_CHUNK[phase]),
+                        seg_chunk_rows=SUP_CHUNK[phase], **splits),
             dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(0),
         )
+        if warm:
+            warm_start(model, warm)
         tx = make_optimizer(opt_cls[phase](batch_size=batch_size), phase, 1000, model)
         return (model, plan, TrainState.create(model, tx, use_ema=use_ema),
                 make_supervised_step(model, phase, tx))
@@ -1032,10 +1114,13 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
     out = {"launches": {}, "timed": {}}
     kernel_fns = (vit.mha_qkv, vit.attentive_pool)
     head_pool_fns = (heads.pool_forward, heads.pool_backward)
-    for phase in ("finetune", "probe"):
+    for phase in phases:
         # ---- (a) kernel path vs plain path, same weights, batch 8
         batch = make_synthetic_batch(datasets.dataset, CHECK_BATCH, seed=0)
         model, _, state, step = fresh(phase, CHECK_BATCH)
+        label = {"head_splits": f"{model.arch.heads} x {model.arch.dim_head}, decoder "
+                                f"{model.arch.decoder_heads} x {model.arch.decoder_dim_head}",
+                 "weights": f"ported ({warm})" if warm else "seeded random"}
         zero_counts()
         losses_k, update_k, per_step, norm0, grads_k, unchanged_k, cm = run(
             model, state, step, batch)
@@ -1072,7 +1157,7 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
                 "cosine": torch.nn.functional.cosine_similarity(gk, gp, dim=0).item()}
         loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
         emit({"supervised_agreement": {
-            "phase": phase, "batch": CHECK_BATCH, "seg_chunk_rows": SUP_CHUNK[phase],
+            **label, "phase": phase, "batch": CHECK_BATCH, "seg_chunk_rows": SUP_CHUNK[phase],
             "loss_kernel_path": losses_k, "loss_plain_path": losses_p,
             "loss_rel_err": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
             "step1_update_rel_norm_kernel": rel_k, "step1_update_rel_norm_plain": rel_p,
@@ -1122,7 +1207,7 @@ def supervised_phase(datasets, card: str, want_profile: bool) -> dict:
         flops = mae_model_flops(plan, model.arch, model.inter_depth, phase, bsz,
                                 model.head_specs, datasets.dataset.ref_input)
         peak = next((v for k, v in BF16_PEAK_BY_NAME.items() if k in card), None)
-        row = {"phase": phase, "batch": bsz, "seg_chunk_rows": SUP_CHUNK[phase],
+        row = {**label, "phase": phase, "batch": bsz, "seg_chunk_rows": SUP_CHUNK[phase],
                "remat": False, "seg_head_chunks_recomputed_in_backward": True,
                "step_ms_median": step_ms, "step_ms_all": times,
                "tokens_per_sample": FLAIR_TOKENS, "tokens_per_s": FLAIR_TOKENS * bsz / (step_ms / 1e3),
@@ -1386,15 +1471,18 @@ def baseline_launches_per_step(name: str, phase: str) -> list[int]:
     return [attn, attn if phase == "finetune" else 0, pool, pool]  # heads train in both
 
 
-def baselines_phase(card: str) -> dict:
+def baselines_phase(card: str, runs=BASELINE_RUNS, warm=None, steps: int = 3,
+                    timed: bool = True) -> dict:
     """Each baseline adapter at its release size (seeded random weights, bf16
-    compute, fp32 parameters) on PASTIS-HD synthetic batches: three finetune
-    and three probe steps at batch 8 through the kernels and through the
+    compute, fp32 parameters) on PASTIS-HD synthetic batches: ``steps``
+    finetune and probe steps at batch 8 through the kernels and through the
     plain versions from the same weights (losses, step-1 gradients of every
     trained parameter and, in finetune, of the attention weights alone, frozen
     roles, launches a step against ``baseline_launches_per_step``; DINOv2's
-    LayerScale drawn from N(1, ``LAYERSCALE_STD``)), then timed steps at batch
-    32 and their peak memory."""
+    LayerScale drawn from N(1, ``LAYERSCALE_STD``)), then (``timed``) timed
+    steps at batch 32 and their peak memory.  ``warm``: adapter name -> a
+    ``port_fm`` checkpoint the backbone starts from instead (LayerScale as
+    ported)."""
     from maestro_tpu_torch.baselines import backbone, build_baseline
     from maestro_tpu_torch.conf import (BaselineConfig, DatasetsConfig, OptFinetuneConfig,
                                         OptProbeConfig)
@@ -1417,7 +1505,7 @@ def baselines_phase(card: str) -> dict:
         return list(kernel_counts()[:len(SUP_COUNTERS)])
 
     out = {"launches": dict.fromkeys(SUP_COUNTERS, 0), "rows": []}
-    for name, model_name, size, fusion, extra in BASELINE_RUNS:
+    for name, model_name, size, fusion, extra in runs:
         datasets = DatasetsConfig(name_dataset="pastis_hd")
         if model_name in ("satmae", "prithvi"):
             datasets.pastis_hd.filter_inputs = ["s2"]
@@ -1427,10 +1515,12 @@ def baselines_phase(card: str) -> dict:
         model = build_baseline(datasets, cfg, torch.bfloat16, device="cuda",
                                generator=torch.Generator().manual_seed(0))
         build_s = time.perf_counter() - t0
+        if warm:
+            warm_start(model, warm[name])
         ls_gen = torch.Generator(device="cuda").manual_seed(1)
         with torch.no_grad():
             for n, p in model.named_parameters():
-                if n.rsplit(".", 1)[-1] in ("ls1", "ls2"):
+                if n.rsplit(".", 1)[-1] in ("ls1", "ls2") and not warm:
                     p.normal_(1.0, LAYERSCALE_STD, generator=ls_gen)
         init = {n: p.detach().clone() for n, p in model.named_parameters()}
         # the attention weights of every kernel-run block (qkv, proj), for a
@@ -1454,7 +1544,7 @@ def baselines_phase(card: str) -> dict:
                        if not any(p is q for q in trained)}
             metrics = init_metric_states(model.head_specs)
             losses, per_step = [], []
-            for i in range(3):
+            for i in range(steps):
                 before = counts()
                 state, metrics, logs = step(state, batch, metrics)
                 losses.append(logs["loss_pred"].item())
@@ -1497,7 +1587,9 @@ def baselines_phase(card: str) -> dict:
                    "step1_grad_norm_kernel": grads_k.norm().item(),
                    "step1_attention_grad_cosine": attn_cos,
                    "attention_grad_params": 0 if attn_k is None else attn_k.numel(),
-                   "layerscale": f"N(1, {LAYERSCALE_STD})" if model_name == "dinov2" else None,
+                   "weights": f"ported ({warm[name]})" if warm else "seeded random",
+                   "layerscale": (f"N(1, {LAYERSCALE_STD})" if model_name == "dinov2" and not warm
+                                  else None),
                    "frozen_params": n_frozen, "frozen_roles_unchanged": unchanged_k and unchanged_p,
                    "launches_per_step": dict(zip(SUP_COUNTERS, steps_k[0])),
                    "launches_per_step_expected": dict(zip(SUP_COUNTERS, want))}
@@ -1523,7 +1615,7 @@ def baselines_phase(card: str) -> dict:
         # timed steps at batch 32, staged on the card once
         batch = {k: torch.from_numpy(v).cuda() for k, v in
                  make_synthetic_batch(datasets.dataset, BASELINE_BATCH, seed=1).items()}
-        for phase in ("finetune", "probe"):
+        for phase in ("finetune", "probe") if timed else ():
             state, step, _ = fresh(phase, BASELINE_BATCH)
             metrics = init_metric_states(model.head_specs)
             for _ in range(WARMUP_STEPS):
@@ -2123,6 +2215,12 @@ BCLI_BATCH = 8
 BCLI_EPOCHS = {"probe": 1, "finetune": 1}
 BCLI_ATTN = 24 * 5  # 24 blocks over each of the 5 modality streams
 BCLI_POOL = 32 // 2  # seg-head chunks: the aerial grid's 32 rows, 2 a chunk
+# the CLI run's data and model overrides (also those its warm start is ported with)
+BCLI_ARGV = ["datasets.name_dataset=flair", "datasets.flair.rel_dir=",
+             "datasets.flair.aerial.image_size=448", "datasets.flair.spot.image_size=56",
+             "datasets.flair.s2.image_size=28", "datasets.flair.s1_asc.image_size=28",
+             "datasets.flair.s1_des.image_size=28", "model.model=dinov2",
+             "model.model_size=large", "model.fusion_mode=shared"]
 BCLI_PER_BATCH = {
     ("train", "probe"): (BCLI_ATTN, 0, BCLI_POOL, BCLI_POOL, 0, 0),
     ("train", "finetune"): (BCLI_ATTN, BCLI_ATTN, BCLI_POOL, BCLI_POOL, 0, 0),
@@ -2131,27 +2229,17 @@ BCLI_PER_BATCH = {
 }
 
 
-def baseline_cli_phase(root, smi: str) -> dict:
-    """``maestro_tpu_torch.main.main`` with ``model.model=dinov2
-    model.model_size=large model.fusion_mode=shared`` over the FLAIR-HUB tiles
-    under ``root``: no pretrain, probe 1 epoch, finetune 1 epoch (test on the
-    best checkpoint), batch 8, ``data.loader=auto``.  Each kernel's launches
-    per pass must be the pass's batches x launches a batch, and no plain
-    version may run.  Returns the launches of the run by kernel."""
+def cli_run(argv, per_batch: dict, epochs: dict) -> dict:
+    """``maestro_tpu_torch.main.main(argv)`` with its passes counted.  Fails
+    unless the run's phases are ``epochs``' with that many finite train losses
+    each, each kernel's launches per pass are the pass's batches x launches a
+    batch (``per_batch`` by (pass, phase)), the passes add up to the counters,
+    every attention and pool kernel ran, and no plain version ran.  Returns
+    the results, the launches by kernel, the passes, the ``Experiment`` and
+    the run's seconds."""
     from maestro_tpu_torch import main as cli
     from maestro_tpu_torch.train import runtime as TR
 
-    tmp = Path(tempfile.mkdtemp(prefix="maestro_baseline_"))
-    argv = [f"datasets.root_dir={root}", "datasets.name_dataset=flair",
-            "datasets.flair.rel_dir=", "datasets.flair.aerial.image_size=448",
-            "datasets.flair.spot.image_size=56", "datasets.flair.s2.image_size=28",
-            "datasets.flair.s1_asc.image_size=28", "datasets.flair.s1_des.image_size=28",
-            "model.model=dinov2", "model.model_size=large", "model.fusion_mode=shared",
-            "trainer.compute_dtype=bfloat16", "data.loader=auto",
-            f"data.num_workers={EXP_WORKERS}", "opt_finetune.monitor=cosia/average_iou_val",
-            "run.logged_images_per_epoch=0", f"run.exp_dir={tmp}", "run.exp_name=dinov2"]
-    argv += [f"opt_{p}.{k}={v}" for p, n in BCLI_EPOCHS.items()
-             for k, v in (("epochs", n), ("batch_size", BCLI_BATCH))]
     patches = _Patches()
     counter = _PassCounter(patches)
 
@@ -2172,19 +2260,18 @@ def baseline_cli_phase(root, smi: str) -> dict:
         plain = plain_counts()
     finally:
         patches.undo()
-        shutil.rmtree(tmp, ignore_errors=True)
-    exp, passes = counter.exp, counter.passes
+    passes = counter.passes
     problems = []
-    if list(results) != list(BCLI_EPOCHS):
-        problems.append(f"phases {list(results)} (a baseline has no pretrain)")
+    if list(results) != list(epochs):
+        problems.append(f"phases {list(results)}, expected {list(epochs)}")
     for phase, res in results.items():
-        vals = [e.get("train/loss_pred") for e in res.history]
-        if len(vals) != BCLI_EPOCHS[phase] or not all(
+        vals = [e.get("train/loss_pred", e.get("train/loss_rec")) for e in res.history]
+        if len(vals) != epochs.get(phase) or not all(
                 v is not None and math.isfinite(v) for v in vals):
             problems.append(f"{phase} losses {vals}")
     by_kernel = dict.fromkeys(KERNEL_COUNTERS, 0)
     for row in passes:
-        row["expected"] = [row["batches"] * k for k in BCLI_PER_BATCH[(row["pass"], row["phase"])]]
+        row["expected"] = [row["batches"] * k for k in per_batch[(row["pass"], row["phase"])]]
         row["seconds_per_batch"] = row["seconds"] / max(row["batches"], 1)
         for name, got in zip(KERNEL_COUNTERS, row["launches"]):
             by_kernel[name] += got
@@ -2198,20 +2285,332 @@ def baseline_cli_phase(root, smi: str) -> dict:
         problems.append(f"an attention or pool kernel was never launched: {totals}")
     if any(plain.values()):
         problems.append(f"plain versions ran on the card: {plain}")
+    if problems:
+        raise AssertionError("CLI run: " + "; ".join(problems))
+    return {"results": results, "launches": totals, "plain_calls": plain, "passes": passes,
+            "exp": counter.exp, "seconds": run_s}
+
+
+def baseline_cli_phase(root, smi: str, pretrained=None) -> dict:
+    """``maestro_tpu_torch.main.main`` with ``model.model=dinov2
+    model.model_size=large model.fusion_mode=shared`` over the FLAIR-HUB tiles
+    under ``root``: no pretrain, probe 1 epoch, finetune 1 epoch (test on the
+    best checkpoint), batch 8, ``data.loader=auto``, the backbone warm-started
+    from ``pretrained`` (``model.pretrained_path``) when given, through
+    ``cli_run``'s checks.  Returns the launches of the run by kernel."""
+    tmp = Path(tempfile.mkdtemp(prefix="maestro_baseline_"))
+    argv = BCLI_ARGV + [f"datasets.root_dir={root}", "trainer.compute_dtype=bfloat16",
+                        "data.loader=auto", f"data.num_workers={EXP_WORKERS}",
+                        "opt_finetune.monitor=cosia/average_iou_val",
+                        "run.logged_images_per_epoch=0", f"run.exp_dir={tmp}",
+                        "run.exp_name=dinov2"]
+    argv += [f"opt_{p}.{k}={v}" for p, n in BCLI_EPOCHS.items()
+             for k, v in (("epochs", n), ("batch_size", BCLI_BATCH))]
+    if pretrained:
+        argv.append(f"model.pretrained_path={pretrained}")
+    try:
+        run = cli_run(argv, BCLI_PER_BATCH, BCLI_EPOCHS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    exp = run.pop("exp")
     emit({"baseline_cli_run": {
         "model": "dinov2 large imagenat", "fusion": "shared", "dataset": "flair",
-        "batch": BCLI_BATCH, "seconds": run_s, "loader": exp.cfg.data.loader,
+        "pretrained_path": str(pretrained) if pretrained else None,
+        "batch": BCLI_BATCH, "seconds": run["seconds"], "loader": exp.cfg.data.loader,
         "stream_tokens": {m: s.grid**2 + 1 for m, s in exp.plan.mod_specs.items()},
-        "launches": totals, "plain_calls": plain, "passes": passes,
+        "launches": run["launches"], "plain_calls": run["plain_calls"],
+        "passes": run["passes"],
         "results": {p: {"val": r.val_metrics, "test": r.test_metrics}
-                    for p, r in results.items()}, "card": smi}})
-    if problems:
-        raise AssertionError("baseline CLI run: " + "; ".join(problems))
+                    for p, r in run["results"].items()}, "card": smi}})
     del exp
-    counter.exp = None
     torch.cuda.empty_cache()
-    return totals
+    return run["launches"]
 
+
+# ---- the released-weights path (phase ``released``): a MAESTRO release and the five
+# foundation-model releases, synthesized from seeds in their release layouts, ported
+# by the port's CLIs into warm starts and run on the card
+REF_SPLITS = {"encoder_heads": 12, "encoder_dim_head": 64, "decoder_heads": 16,
+              "decoder_dim_head": 32}  # the releases' (reference ssl/mae.py:345-360)
+# what a release's user pays a step: the pretrain decoder's aerial stream at the
+# pretrain batch, the finetune trunk at the finetune batch
+RELEASED_TIMED_SHAPES = ((TRAIN_BATCH, 1024, 16, 32), (32, 1880, 12, 64))
+REL_EPOCHS = {"pretrain": 1, "finetune": 1}
+REL_PER_BATCH = {k: v for k, v in EXP_PER_BATCH.items()
+                 if k[0] in ("train", "eval") and k[1] in REL_EPOCHS}
+PREDICT_PER_BATCH = EXP_PER_BATCH[("eval", "finetune")]  # a finetune forward a batch
+# each adapter's default release (port/manifests.py DEFAULT_FOR) at the size the
+# baselines phase runs it
+FM_RELEASES = {"dinov2": "dinov2_large", "dofa": "dofa_base", "croma-inter": "croma_base",
+               "satmae": "satmae_large", "prithvi": "prithvi_v2_300_tl"}
+RELEASE_STD = 0.02  # synthesize_state_dict's N(0, 0.02)
+
+
+def release_state_dict(manifest: dict, seed: int) -> dict:
+    """A release with the manifest's keys and shapes, N(0, RELEASE_STD) drawn on
+    the card from ``seed`` (an unpinned shape at ``synthesize_state_dict``'s
+    placeholder), as CPU tensors; CROMA's nested by sub-dict, as it ships."""
+    from maestro_tpu_torch.port import manifests as mf
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    flat = {}
+    for key, shape in manifest["keys"].items():
+        if shape is None:
+            shape = mf.synthesize_state_dict(
+                {"name": manifest["name"], "keys": {key: None}})[key].shape
+        flat[key] = (torch.randn(tuple(shape), generator=gen, device="cuda")
+                     * RELEASE_STD).cpu()
+    if manifest["adapter"] != "croma":
+        return flat
+    tree: dict = {}
+    for key, value in flat.items():
+        top, rest = key.split(".", 1)
+        tree.setdefault(top, {})[rest] = value
+    return tree
+
+
+def _printed(fn, *args):
+    """(fn(*args), what it printed)."""
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = fn(*args)
+    return out, text.getvalue()
+
+
+def attention_times(b: int, l: int, h: int, d: int, gen) -> dict:
+    """The attention forward and backward at one shape, bf16: kernel, plain
+    version, SDPA (timed only) and the bound of each."""
+    from maestro_tpu_torch.ops import attention
+
+    scale = d**-0.5
+    qkv = qkv_fused(b, l, h, d, torch.bfloat16, gen)
+    q, k, v = qkv.unbind(dim=2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fwd_bound, fwd_by = attention_bound(b, l, h, d, torch.bfloat16)
+    fwd = {"ms": time_ms(lambda: attention.mha_blhd(q, k, v, scale), 10),
+           "plain_ms": time_ms(lambda: attention.mha_blhd_plain(q, k, v, scale), 2, warmup=1),
+           "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+               qt, kt, vt, scale=scale), 10),
+           "bound_ms": fwd_bound, "bound_by": fwd_by}
+    out, lse = attention._fwd(q, k, v, scale, with_lse=True)
+    dout = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    plain_in = qkv.detach().requires_grad_(True)
+    plain_out = attention.mha_qkv_plain(plain_in, scale)
+    lib_in = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_in, scale=scale)
+    dout_t = dout.transpose(1, 2)
+    bwd_bound, bwd_by = attention_bwd_bound(b, l, h, d, torch.bfloat16)
+    bwd = {"ms": time_ms(lambda: attention._bwd(q, k, v, out, lse, dout, scale), 10),
+           "plain_ms": time_ms(lambda: torch.autograd.grad(plain_out, plain_in, dout,
+                                                           retain_graph=True), 2, warmup=1),
+           "library_ms": time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dout_t,
+                                                             retain_graph=True), 10),
+           "bound_ms": bwd_bound, "bound_by": bwd_by}
+    del qkv, q, k, v, out, lse, dout, plain_in, plain_out, lib_in, lib_out
+    torch.cuda.empty_cache()
+    for row in (fwd, bwd):
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    return {"shape": [b, l, h, d], "fwd": fwd, "bwd": bwd}
+
+
+def released_phase(root, smi: str, card: str, datasets, work: Path) -> dict:
+    """Day one with released weights, at full width (MAE medium, FLAIR-HUB,
+    group fusion, 3 trunk blocks, bf16), files under ``work``:
+
+    (a) a seeded MAE release in the reference's lightning layout
+        (``port.torch_port.reference_state_dict``, heads left out) through the
+        ``port_checkpoint`` CLI: the printed split overrides and the meta are
+        the reference's, every ported tensor equals its source bit for bit in
+        fp32, and only the heads stay fresh;
+    (b, e) pretrain and finetune steps from the ported weights at the
+        reference splits (``train_phase``, ``supervised_phase``): kernel path
+        against plain path at batch 8, then timed at 48 and 32; and the
+        attention forward and backward timed at the shapes they add;
+    (c) ``maestro_tpu_torch.main`` with ``run.load_ckpt_path`` and the printed
+        overrides over the experiment's tiles, pretrain 1 epoch and finetune 1
+        (``cli_run``'s checks);
+    (d) ``scripts/predict`` over the test split from that run's finetune
+        checkpoint: files, shapes, dtypes, EMA weights, launches, tiles/s;
+    (f) each adapter's default release synthesized from a seed, saved as it
+        ships, ported by the ``port_fm`` CLI (manifest clean, no backbone
+        parameter fresh), one probe and one finetune step from it at batch 8,
+        kernel path against plain path; DINOv2-L's also ported for the
+        baseline CLI run (returned as ``dinov2_flair``).
+    """
+    import numpy as np
+
+    from maestro_tpu_torch.conf import MaskConfig, ModelConfig
+    from maestro_tpu_torch.models.mae import build_model
+    from maestro_tpu_torch.port import manifests as mf
+    from maestro_tpu_torch.port.torch_port import reference_state_dict
+    from maestro_tpu_torch.scripts import port_checkpoint, port_fm, predict
+    from maestro_tpu_torch.train import checkpoint as ckpt
+
+    launches = dict.fromkeys(KERNEL_COUNTERS, 0)
+
+    def add(counts: dict) -> None:
+        for key, n in counts.items():
+            launches[key] += n
+
+    # ---- (a) the MAESTRO release, ported
+    if port_checkpoint.reference_splits("medium") != REF_SPLITS:
+        raise AssertionError(f"port_checkpoint's splits {port_checkpoint.reference_splits('medium')}")
+    t0 = time.perf_counter()
+    source, _ = build_model(datasets, MaskConfig(),
+                            ModelConfig(model_size="medium", fusion_mode="group", inter_depth=3),
+                            dtype=torch.float32, device="cpu",
+                            generator=torch.Generator().manual_seed(7))
+    release = work / "MAESTRO_FLAIR-HUB_base.ckpt"
+    torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in
+                               reference_state_dict(source, heads=False).items()},
+                "epoch": 0}, release)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ported, printed = _printed(port_checkpoint.main, [
+        "--ckpt", str(release), "--dataset", "flair", "--fusion-mode", "group",
+        "--model-size", "medium", "--inter-depth", "3", "--out", str(work / "ported")])
+    port_s = time.perf_counter() - t0
+    lines = printed.splitlines()
+    split_args = next(ln for ln in lines if ln.startswith("run with the reference head splits"))
+    split_args = split_args.split(":", 1)[1].split()
+    n_fresh = int(next(ln for ln in lines if ln.startswith("ported ")).split("; ")[1].split()[0])
+    saved = torch.load(ported / "state" / ckpt.PAYLOAD, weights_only=True)["params"]
+    params = dict(source.named_parameters())
+    heads = [n for n in params if n.startswith("heads.")]
+    problems = []
+    if split_args != [f"model.{k}={v}" for k, v in REF_SPLITS.items()]:
+        problems.append(f"printed overrides {split_args}")
+    if {k: ckpt.load_meta(ported).get(k) for k in REF_SPLITS} != REF_SPLITS:
+        problems.append(f"meta {ckpt.load_meta(ported)}")
+    if sorted(saved) != sorted(n for n in params if n not in heads) or n_fresh != len(heads):
+        problems.append(f"{n_fresh} fresh, {len(saved)} of {len(params)} parameters ported")
+    differ = [n for n, v in saved.items()
+              if v.dtype != torch.float32 or not torch.equal(v, params[n].detach())]
+    if differ:
+        problems.append(f"ported tensors differ from their source: {differ[:5]}")
+    emit({"released_port": {
+        "release": "MAE medium, FLAIR-HUB, group, inter_depth 3 (reference layout, seeded)",
+        "release_bytes": release.stat().st_size, "synthesize_s": synth_s, "port_s": port_s,
+        "ported_parameters": len(saved), "fresh_parameters": n_fresh,
+        "fresh_are_heads": n_fresh == len(heads), "bit_identical": not differ,
+        "printed_overrides": split_args, "card": smi}})
+    if problems:
+        raise AssertionError("released port: " + "; ".join(problems))
+    del source, params, saved
+    release.unlink()
+
+    # ---- (b, e) steps from the ported weights at the reference splits
+    train = train_phase(datasets, card, False, splits=REF_SPLITS, warm=ported)
+    sup = supervised_phase(datasets, card, False, splits=REF_SPLITS, warm=ported,
+                           phases=("finetune",))
+    add(train["launches"])
+    add(sup["launches"]["finetune"])
+    gen = torch.Generator(device="cuda").manual_seed(RELEASED_SEED + 2)
+    timed_attention = [attention_times(*shape, gen) for shape in RELEASED_TIMED_SHAPES]
+    for row in timed_attention:
+        emit({"released_attention_times": {**row, "card": smi}})
+
+    # ---- (c) the CLI from the ported weights
+    common = [f"datasets.root_dir={root}", "datasets.name_dataset=flair",
+              "datasets.flair.rel_dir=", "model.model_size=medium", "model.fusion_mode=group",
+              "model.inter_depth=3", *split_args, "trainer.compute_dtype=bfloat16",
+              "data.loader=auto", f"data.num_workers={EXP_WORKERS}"]
+    argv = common + ["model.use_ema=true", "opt_finetune.monitor=cosia/average_iou_val",
+                     "run.logged_images_per_epoch=0", f"run.exp_dir={work / 'runs'}",
+                     "run.exp_name=released", f"run.load_ckpt_path={ported}",
+                     "opt_probe.epochs=0"]
+    argv += [f"opt_{p}.{k}={v}" for p, n in REL_EPOCHS.items()
+             for k, v in (("epochs", n), ("batch_size", EXP_BATCH))]
+    run = cli_run(argv, REL_PER_BATCH, REL_EPOCHS)
+    exp = run.pop("exp")
+    add(run["launches"])
+    emit({"released_cli_run": {
+        "seconds": run["seconds"], "loader": exp.cfg.data.loader, "batch": EXP_BATCH,
+        "launches": run["launches"], "plain_calls": run["plain_calls"], "passes": run["passes"],
+        "results": {p: {"val": r.val_metrics, "test": r.test_metrics}
+                    for p, r in run["results"].items()}, "card": smi}})
+    del exp
+    torch.cuda.empty_cache()
+
+    # ---- (d) predict from the run's finetune checkpoint
+    finetuned = ckpt.find_latest_checkpoint(work / "runs" / "released", "finetune")
+    if finetuned is None:
+        raise AssertionError("the released CLI run wrote no finetune checkpoint")
+    preds_dir = work / "preds"
+    zero_counts()
+    pred = predict.main([str(preds_dir), *common, f"run.load_ckpt_path={finetuned}",
+                             "--split=test", f"--batch-size={EXP_BATCH}"])
+    torch.cuda.synchronize()
+    got = dict(zip(KERNEL_COUNTERS, kernel_counts()))
+    plain = plain_counts()
+    add(got)
+    batches = -(-EXP_TILES // EXP_BATCH)
+    want = dict(zip(KERNEL_COUNTERS, (batches * n for n in PREDICT_PER_BATCH)))
+    files = sorted((preds_dir / "cosia").glob("preds_*.npy"))
+    arrays = [np.load(f) for f in files]
+    problems = []
+    if not pred["ema"]:
+        problems.append("predict did not use the EMA weights")
+    if pred["tiles"] != {"cosia": EXP_TILES} or len(files) != EXP_TILES:
+        problems.append(f"tiles {pred['tiles']}, {len(files)} files")
+    if any(a.dtype != np.int16 or a.ndim != 3 or a.shape[-2:] != (512, 512)
+           or a.min() < 0 or a.max() >= 15 for a in arrays):
+        problems.append(f"prediction arrays {[(a.dtype, a.shape) for a in arrays[:3]]}")
+    if got != want or any(plain.values()):
+        problems.append(f"launches {got} (expected {want}), plain calls {plain}")
+    emit({"released_predict": {
+        "tiles": EXP_TILES, "batch": EXP_BATCH, "batches": batches,
+        "seconds": pred["seconds"], "tiles_per_s": EXP_TILES / pred["seconds"],
+        "ema": pred["ema"], "file_shape": list(arrays[0].shape) if arrays else None,
+        "launches": got, "launches_expected": want, "plain_calls": plain, "card": smi}})
+    if problems:
+        raise AssertionError("released predict: " + "; ".join(problems))
+    shutil.rmtree(preds_dir, ignore_errors=True)
+
+    # ---- (f) the five foundation-model releases
+    warm, cli_pretrained, fm_rows = {}, None, []
+    runs = [r for r in BASELINE_RUNS if r[0] in FM_RELEASES]
+    for seed, (name, model_name, size, fusion, extra) in enumerate(runs):
+        mname = FM_RELEASES[name]
+        if mf.DEFAULT_FOR[(model_name, size)] != mname:
+            raise AssertionError(f"{name}: the default release is {mf.DEFAULT_FOR[(model_name, size)]}")
+        manifest = mf.ALL_MANIFESTS[mname]()
+        t0 = time.perf_counter()
+        path = work / f"{mname}.pth"
+        torch.save(release_state_dict(manifest, seed), path)
+        synth_s = time.perf_counter() - t0
+        overrides = ["datasets.name_dataset=pastis_hd", f"model.model={model_name}",
+                     f"model.model_size={size}", f"model.fusion_mode={fusion}",
+                     *[f"model.{k}={v}" for k, v in extra.items()]]
+        if model_name in ("satmae", "prithvi"):
+            overrides.append('datasets.pastis_hd.filter_inputs=["s2"]')
+        t0 = time.perf_counter()
+        warm[name], printed = _printed(port_fm.main, [
+            "--ckpt", str(path), "--out", str(work / f"fm_{name}"), *overrides])
+        port_s = time.perf_counter() - t0
+        manifest_ok = f"manifest {mname}: all {len(manifest['keys'])} release keys" in printed
+        backbone_ok = "; 0 backbone leaves fresh" in printed
+        row = {"adapter": name, "release": mname, "release_bytes": path.stat().st_size,
+               "synthesize_s": synth_s, "port_s": port_s, "manifest_clean": manifest_ok,
+               "backbone_fresh_0": backbone_ok,
+               "printed": [ln for ln in printed.splitlines() if ln.startswith(("manifest", "ported"))]}
+        if model_name == "dinov2":  # the baseline CLI run's warm start, its own config
+            cli_pretrained, _ = _printed(port_fm.main, [
+                "--ckpt", str(path), "--out", str(work / "fm_dinov2_flair"), *BCLI_ARGV,
+                f"datasets.root_dir={root}"])
+        path.unlink()
+        emit({"released_fm_port": {**row, "card": smi}})
+        fm_rows.append(row)
+        if not (manifest_ok and backbone_ok):
+            raise AssertionError(f"port_fm {name}: {row['printed']}")
+    bl = baselines_phase(card, runs=runs, warm=warm, steps=1, timed=False)
+    add(bl["launches"])
+    return {"launches": launches, "train": train["timed"], "finetune": sup["timed"]["finetune"],
+            "attention": timed_attention, "cli_seconds": run["seconds"],
+            "predict_tiles_per_s": EXP_TILES / pred["seconds"],
+            "fm": fm_rows, "dinov2_flair": cli_pretrained}
 
 
 # ---- the experiment path at tens of batches a pass, thread loader against worker
@@ -2439,17 +2838,23 @@ def main() -> None:
     # ---- 5e. the baseline adapters at their release sizes (PASTIS-HD)
     bl = baselines_phase(card)
 
-    # ---- 5f. the experiment path, then a baseline through the CLI, over tiles on disk
+    # ---- 5f. the experiment path, the released weights (phase ``released``), then a
+    # baseline through the CLI from its ported release, over tiles on disk
     tiles = Path(tempfile.mkdtemp(prefix="maestro_tiles_"))
+    work = Path(tempfile.mkdtemp(prefix="maestro_released_"))  # 1.2-1.4 GB files
     try:
         t0 = time.perf_counter()
         data_bytes = write_flair_tiles(tiles, EXP_TILES)
         emit({"experiment_data": {"tiles": EXP_TILES, "bytes": data_bytes,
                                   "write_s": time.perf_counter() - t0}})
         ex = experiment_phase(tiles, smi)
-        bc = baseline_cli_phase(tiles, smi)
+        t0 = time.perf_counter()
+        rel = released_phase(tiles, smi, card, datasets, work)
+        bc = baseline_cli_phase(tiles, smi, pretrained=rel["dinov2_flair"])
+        emit({"released_seconds": time.perf_counter() - t0})
     finally:
         shutil.rmtree(tiles, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
 
     # ---- 6. kernel times at the main paths' shapes, back to back
     # (inputs stay warm in L2, as they are right after the qkv projection)
@@ -2617,13 +3022,14 @@ def main() -> None:
     # the launches of the paths this slice added, by counter
     extra = lambda key: {"pretrain_eval": pe.get(key, 0), "skip_nonfinite": sk.get(key, 0),  # noqa: E731
                          "finetune_remat_dots": rd.get(key, 0), "experiment": ex[key],
-                         "baselines": bl["launches"].get(key, 0), "baseline_cli": bc[key]}
+                         "baselines": bl["launches"].get(key, 0), "released": rel["launches"][key],
+                         "baseline_cli": bc[key]}
     loss_entry = lambda direction, fn_name, line, key, err, per_step, times: {  # noqa: E731
         "name": fn_name, "route": "cuda", "source": "maestro_tpu_torch/csrc/fused_loss.cu",
         "replaces": f"maestro_tpu/ops/fused_loss.py:{line}",
-        "launches": tl[key] + ex[key], "launches_per_step": per_step,
+        "launches": tl[key] + ex[key] + rel["launches"][key], "launches_per_step": per_step,
         "launches_by_path": {"serve": 0, "train": tl[key], "finetune": 0, "probe": 0,
-                             "experiment": ex[key]},
+                             "experiment": ex[key], "released": rel["launches"][key]},
         "max_abs_err": err, **loss_totals[direction],
         "bound_by": max(loss_kinds[direction], key=loss_kinds[direction].get),
         "bound_share": loss_totals[direction]["bound_ms"] / loss_totals[direction]["ms"],
@@ -2649,7 +3055,8 @@ def main() -> None:
          "bound_by": max(bound_kinds, key=bound_kinds.get), "library_ms": totals["library_ms"],
          "times_are": "sum over the 39 launches of one batch-8 request, bf16",
          "train_step_fwd_with_lse_ms": bwd_totals["fwd_ms"],
-         "per_shape": attn_rows},
+         "per_shape": attn_rows,
+         "released_shapes": [{"shape": r["shape"], **r["fwd"]} for r in rel["attention"]]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "maestro_tpu_torch/csrc/flash_attention_bwd.cu",
          "design": "attn_bwd_delta (Delta, lse * log2 e in padded rows; zeroes the fp32 dQ "
@@ -2673,7 +3080,8 @@ def main() -> None:
                       "step, bf16; a call is three launches (Delta and scratch zeroing, the wgmma "
                       "kernel, the dq convert); library = "
                       "the backward of scaled_dot_product_attention",
-         "per_shape": bwd_rows, "finetune_full_length_shapes": ft_bwd_rows},
+         "per_shape": bwd_rows, "finetune_full_length_shapes": ft_bwd_rows,
+         "released_shapes": [{"shape": r["shape"], **r["bwd"]} for r in rel["attention"]]},
         loss_entry("fwd", "masked_patchnorm_sums_fwd_multi", 53, "loss_fwd", loss_sum_err,
                    LOSS_FWD_PER_STEP,
                    f"one grouped launch over the five modalities of a batch-{train_batch} train "

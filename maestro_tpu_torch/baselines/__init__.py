@@ -3,7 +3,8 @@
 They run competitor models through the same probe/finetune harness as the
 flagship MAE (the JAX package's ``baselines/``; reference
 maestro/baselines/).  Weights start from ``generator`` (a seeded random
-init); carrying released checkpoints over is not ported yet.
+init), or from a released checkpoint ported by
+``maestro_tpu_torch.scripts.port_fm`` and named by ``model.pretrained_path``.
 """
 
 from __future__ import annotations

@@ -43,7 +43,10 @@ def layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype: torch.dtype) -> torc
 
 def init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
     """Normal(0, 1/fan_in) weight, zero bias, drawn on the CPU from
-    ``generator`` so a seed gives the same weights on every device."""
+    ``generator`` so a seed gives the same weights on every device (nothing is
+    drawn for a ``meta`` template, which holds shapes only)."""
+    if layer.weight.is_meta:
+        return
     out_f, in_f = layer.weight.shape
     w = torch.randn((out_f, in_f), generator=generator) * in_f**-0.5
     with torch.no_grad():
@@ -53,7 +56,10 @@ def init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
 
 
 def normal_parameter(shape, generator: torch.Generator, device, std: float = 1.0) -> nn.Parameter:
-    """fp32 Normal(0, std) parameter drawn on the CPU from ``generator``."""
+    """fp32 Normal(0, std) parameter drawn on the CPU from ``generator``
+    (undrawn on ``meta``)."""
+    if torch.device(device).type == "meta":
+        return nn.Parameter(torch.empty(shape, device="meta"))
     return nn.Parameter((torch.randn(shape, generator=generator) * std).to(device))
 
 

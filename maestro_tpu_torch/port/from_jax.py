@@ -20,6 +20,9 @@ It is strict both ways: a flax leaf that maps to no parameter, a shape that
 disagrees, or a parameter left unfilled raises and lists the names.  A flax
 ``init`` in one phase creates only that phase's parameters, so a caller may
 list parameter-name prefixes that are allowed to stay unfilled.
+``match_jax_params`` is the pairing both use, and the strict=False merge of a
+ported release (``port/torch_port.merge_into_template``) uses it too;
+``jax_tree`` goes the other way.
 """
 
 from __future__ import annotations
@@ -70,35 +73,46 @@ def flax_names(module: nn.Module) -> dict[tuple[str, ...], tuple[str, bool]]:
     return out
 
 
+def match_jax_params(
+    module: nn.Module, tree: Mapping[str, Any],
+) -> tuple[dict[str, np.ndarray], list[str], list[str], list[str]]:
+    """Pair the leaves of a flax tree with ``module``'s parameters by flax path.
+
+    Returns ``(values, unknown, mismatched, unfilled)``: the value of every
+    parameter whose leaf exists with the parameter's shape (a Dense kernel
+    already transposed), by parameter name; the flax paths that map to no
+    parameter; the pairs whose shapes disagree; the parameters no leaf fills.
+    """
+    if "params" in tree and isinstance(tree["params"], Mapping):
+        tree = tree["params"]
+    leaves = dict(_flatten(tree))
+    params = dict(module.named_parameters())
+    values: dict[str, np.ndarray] = {}
+    mismatched, unfilled = [], []
+    for path, (name, transpose) in flax_names(module).items():
+        value = leaves.pop(path, None)
+        if value is None:
+            unfilled.append(name)
+            continue
+        if transpose:
+            value = value.T
+        if tuple(value.shape) != tuple(params[name].shape):
+            mismatched.append(
+                f"{'/'.join(path)} {tuple(value.shape)} -> {name} {tuple(params[name].shape)}",
+            )
+            continue
+        values[name] = value
+    return values, ["/".join(path) for path in leaves], mismatched, unfilled
+
+
 def load_jax_params(
     module: nn.Module,
     tree: Mapping[str, Any],
     missing_ok: Iterable[str] = (),
 ) -> None:
     """Fill ``module``'s parameters from a flax tree of numpy arrays."""
-    if "params" in tree and isinstance(tree["params"], Mapping):
-        tree = tree["params"]
-    leaves = dict(_flatten(tree))
-    mismatched, unfilled = [], []
-    allowed = tuple(missing_ok)
-    params = dict(module.named_parameters())
-    with torch.no_grad():
-        for path, (name, transpose) in flax_names(module).items():
-            param = params[name]
-            value = leaves.pop(path, None)
-            if value is None:
-                if not name.startswith(allowed):
-                    unfilled.append(name)
-                continue
-            if transpose:
-                value = value.T
-            if tuple(value.shape) != tuple(param.shape):
-                mismatched.append(
-                    f"{'/'.join(path)} {tuple(value.shape)} -> {name} {tuple(param.shape)}",
-                )
-                continue
-            param.copy_(torch.tensor(value, dtype=param.dtype))
-    unknown = ["/".join(path) for path in leaves]
+    values, unknown, mismatched, unfilled = match_jax_params(module, tree)
+    unfilled = [name for name in unfilled if not name.startswith(tuple(missing_ok))]
     if unknown or mismatched or unfilled:
         msg = (
             "load_jax_params: the trees do not match.\n"
@@ -107,3 +121,21 @@ def load_jax_params(
             f"  parameters left unfilled: {unfilled}"
         )
         raise KeyError(msg)
+    params = dict(module.named_parameters())
+    with torch.no_grad():
+        for name, value in values.items():
+            params[name].copy_(torch.tensor(value, dtype=params[name].dtype))
+
+
+def jax_tree(module: nn.Module) -> dict[str, Any]:
+    """``module``'s parameters as a flax tree of float32 numpy arrays under
+    ``"params"`` (the inverse of ``load_jax_params``)."""
+    tree: dict[str, Any] = {}
+    params = dict(module.named_parameters())
+    for path, (name, transpose) in flax_names(module).items():
+        value = params[name].detach().float().cpu().numpy()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value.T if transpose else value
+    return {"params": tree}

@@ -116,6 +116,24 @@ def save_checkpoint(
     return path
 
 
+def save_weights(
+    ckpt_dir: str | Path,
+    phase: str,
+    epoch: int,
+    params: dict[str, torch.Tensor],
+    extra: dict[str, Any] | None = None,
+) -> Path:
+    """Write a weights-only checkpoint: ``params`` by parameter name at step 0,
+    no optimizer state (the ported releases of ``scripts/port_checkpoint`` and
+    ``scripts/port_fm``).  ``load_weights`` warm-starts from it."""
+    path = Path(ckpt_dir).absolute() / f"{phase}-epoch={epoch}"
+    payload = {"params": {n: t.detach().to("cpu", copy=True) for n, t in params.items()},
+               "step": 0}
+    _write(path, payload)
+    _write_meta(path, extra)
+    return path
+
+
 class AsyncSaver:
     """Non-blocking epoch checkpoints.
 

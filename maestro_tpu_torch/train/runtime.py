@@ -12,9 +12,10 @@ The model is one ``torch.nn.Module`` that holds every parameter from the
 start, built from ``run.seed``: the parameters a phase trains are carried
 into the next phase in place (the JAX package's strict=False ``_merge_params``
 carry-over), and the heads a phase adds keep their seeded initial values
-until a phase trains them.  A warm start (``run.load_*``) fills, strict=False by name and shape, the
-parameters of the first phase that runs (``phase_params``), as the JAX
-package's first ``init_params`` does.
+until a phase trains them.  A warm start (``run.load_*``, or a baseline's
+``model.pretrained_path`` written by ``scripts/port_fm``) fills, strict=False
+by name and shape, the parameters of the first phase that runs
+(``phase_params``), as the JAX package's first ``init_params`` does.
 
 Everything runs on one device, passed as ``device=`` (default ``"cuda"``);
 the knobs the port does not run raise ``NotImplementedError``
@@ -81,9 +82,6 @@ def check_supported(cfg: ExperimentConfig) -> None:
         refusals.append(f"trainer.mesh_replica={t.mesh_replica} (ROADMAP.md queue 1 item 4)")
     if t.fsdp:
         refusals.append("trainer.fsdp=true (FSDP: ROADMAP.md queue 1 item 4)")
-    if cfg.model.pretrained_path:
-        refusals.append("model.pretrained_path (the baseline adapters' released weights: "
-                        "ROADMAP.md queue 1 item 5b; the MAE warm-starts from run.load_*)")
     if _process_count() > 1:
         refusals.append(f"{_process_count()} processes (data-parallel training: ROADMAP.md "
                         "queue 1 item 4)")
@@ -128,6 +126,47 @@ def _check_resume_loader(meta: dict, data_cfg) -> None:
         raise ValueError(msg)
 
 
+_TORCH_SUFFIXES = (".pt", ".pth", ".ckpt", ".bin", ".safetensors")
+
+
+def _resolve_pretrained_path(path: str, is_baseline: bool) -> str:
+    """Validate ``model.pretrained_path`` (a baseline's released-weights warm
+    start).
+
+    The reference passes pretrained_path straight into each adapter's torch
+    loader (e.g. croma.py:386-436); here the surgery runs once offline
+    (``maestro_tpu_torch.scripts.port_fm``) and training reads the checkpoint
+    it writes, warm-started strict=False like ``run.load_ckpt_path``.  A path
+    that cannot be that checkpoint fails loudly instead of being ignored (the
+    JAX package's ``_resolve_pretrained_path``).
+    """
+    if not is_baseline:
+        msg = (
+            "model.pretrained_path is consumed by baseline FM adapters; for "
+            "flagship MAE checkpoints use run.load_name / run.load_ckpt_path "
+            "(a reference .ckpt is ported by python -m "
+            "maestro_tpu_torch.scripts.port_checkpoint)."
+        )
+        raise ValueError(msg)
+    p = Path(path)
+    if p.suffix.lower() in _TORCH_SUFFIXES:
+        msg = (
+            f"model.pretrained_path={path!r} looks like a torch checkpoint; "
+            "port it first: python -m maestro_tpu_torch.scripts.port_fm --ckpt "
+            "<file> --out <dir> model.model=... , then set "
+            "model.pretrained_path=<dir>/fm-epoch=0"
+        )
+        raise ValueError(msg)
+    if not (p / "state").exists():
+        msg = (
+            f"model.pretrained_path={path!r} has no 'state' subdirectory — "
+            "expected a checkpoint written by python -m "
+            "maestro_tpu_torch.scripts.port_fm"
+        )
+        raise FileNotFoundError(msg)
+    return str(p)
+
+
 def phase_params(model: torch.nn.Module, phase: str) -> dict[str, torch.nn.Parameter]:
     """The parameters a phase's forward and loss use, by name: pretrain
     everything but the heads, probe and finetune everything but the
@@ -162,7 +201,11 @@ class Experiment:
             generator=torch.Generator().manual_seed(cfg.run.seed),
         )
         self._initialized = False  # the warm start applies at the first phase only
-        self._warm_start: str | None = None  # load_* weights-only path
+        self._warm_start: str | None = None  # load_* or pretrained_path, weights only
+        if cfg.model.pretrained_path:
+            self._warm_start = _resolve_pretrained_path(
+                cfg.model.pretrained_path, self.is_baseline,
+            )
         self._writer = None
         self._saver = None  # lazy AsyncSaver (trainer.async_checkpoint)
         self._trackers = None  # lazy (see train/tracking.py)
@@ -774,6 +817,12 @@ def run_experiment(
 
     # warm start from a previous experiment's weights (applied at first init)
     if cfg.run.load_ckpt_path:
+        if exp._warm_start:
+            msg = (
+                "both run.load_ckpt_path and model.pretrained_path are set; "
+                "pick one warm-start source"
+            )
+            raise ValueError(msg)
         exp._warm_start = cfg.run.load_ckpt_path
 
     results: dict[str, PhaseResult] = {}
