@@ -4,6 +4,8 @@
     python3 chip_smoke.py --profile  # also torch.profiler breakdowns of requests and steps
     python3 chip_smoke.py --loader-e2e [threads,grain,...]  # only the CLI at 20 batches a
                                      # pass under each loader named, each in its own process
+    python3 chip_smoke.py --serve-only  # only the build and the serving path's checks
+                                     # and request latency
 
 Builds the hand-written CUDA kernels from ``maestro_tpu_torch/csrc`` (and
 reports the attention and pool kernels' registers, shared memory and spills
@@ -82,7 +84,19 @@ parameters):
   28 px), batch 8, probe 1 epoch and finetune 1, warm-started through
   ``model.pretrained_path`` from the DINOv2-L release ported above: each
   kernel's launches per pass equal to batches x launches a batch, and no
-  plain version run.
+  plain version run;
+* multi-process training (phase ``parallel``, ``parallel/``): (a) one rank
+  over NCCL in this process, pretrain and finetune steps at batch 8 under
+  DDP and under FSDP2 against the unwrapped steps (loss, update cosine and
+  distance, step 2 included, the pools' weights scaled between the steps so
+  that a stale bf16 copy would show; the same launches a step, no plain
+  version), the step ms and peak memory of each; (b) two DDP ranks sharing
+  the card over gloo (spawned; 8 rows each of a global batch 16) against one
+  process at batch 16; (c) the CLI under ``python -m torch.distributed.run
+  --standalone --nproc_per_node=1`` with ``trainer.fsdp=true`` over the
+  tiles (pretrain, probe, finetune 1 epoch each), its finetune checkpoint
+  evaluated in this plain process (``run.eval_only``) to the same test
+  metrics.
 
 The loss forward of a pretrain step is one grouped launch over the five
 modalities; it is also held against its plain version at the five FLAIR
@@ -2702,6 +2716,358 @@ def loader_e2e(order, smi: str) -> None:
         shutil.rmtree(tiles, ignore_errors=True)
 
 
+PAR_BATCH = 8  # a rank's batch in (a) and (b): (b) holds two ranks against one process at 16
+PAR_STEPS = 2  # checked steps a run (trap: step 2 must see the weights step 1 left)
+PAR_TIMED = 3  # timed steps a run, after the checked ones
+PAR_EPOCHS = {"pretrain": 1, "probe": 1, "finetune": 1}  # the CLI under the launcher
+PAR_KV_SCALE = 1.5  # the pools' to_kv weights are scaled by this between steps 1 and 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _par_run(datasets, phase: str, batch: dict, steps: int, mesh=None, fsdp=False,
+             timed: int = 0) -> dict:
+    """``steps`` train steps of MAE medium (FLAIR-HUB, group, 3 trunk blocks,
+    bf16, seeded) on ``batch`` (this rank's rows), wrapped on ``mesh`` when
+    given (DDP, or FSDP2 with ``fsdp``), then ``timed`` steps.  Between the
+    checked steps 1 and 2 every date pool's ``to_kv`` weight is scaled by
+    ``PAR_KV_SCALE`` in place, and in the checked steps every bf16 weight a
+    pool kernel gets is compared with the fp32 weight handed to it beside it,
+    so that a copy left from step 1 shows.  Returns the losses, the
+    kernel launches a step, the whole trained parameters (fp32, flat) before
+    and after each checked step, the bf16 copies handed out and how many were
+    stale, the timed steps' ms and the peak memory."""
+    from maestro_tpu_torch.conf import (MaskConfig, ModelConfig, OptFinetuneConfig,
+                                        OptPretrainConfig)
+    from maestro_tpu_torch.models import heads, vit
+    from maestro_tpu_torch.models.mae import build_model
+    from maestro_tpu_torch.parallel.mesh import Parallel, local
+    from maestro_tpu_torch.train.optim import make_optimizer, trainable_roles
+    from maestro_tpu_torch.train.state import TrainState
+    from maestro_tpu_torch.train.steps import (init_metric_states, make_pretrain_step,
+                                               make_supervised_step)
+
+    model, plan = build_model(
+        datasets, MaskConfig(), ModelConfig(model_size="medium", fusion_mode="group",
+                                            inter_depth=3, seg_chunk_rows=SUP_CHUNK["finetune"]),
+        dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(0))
+    par = None
+    if mesh is not None:
+        par = Parallel(model, mesh, fsdp=fsdp)
+        par.for_phase(trainable_roles(phase))
+    opt = (OptPretrainConfig if phase == "pretrain" else OptFinetuneConfig)(
+        batch_size=len(batch["ref_date"]))
+    tx = make_optimizer(opt, phase, 1000, model, 1 if par is None else par.dp_size)
+    state = TrainState.create(model, tx, parallel=par)
+    names = {id(p): n for n, p in model.named_parameters()}
+    trained = [(names[id(p)], p) for g in tx.adamw.param_groups for p in g["params"]]
+    kv = [p for n, p in model.named_parameters() if n.endswith("to_kv.weight")]
+
+    def whole():  # kept on the host, a parameter at a time: not in the runs' peak memory
+        with torch.no_grad():
+            return torch.cat([(p if par is None else par.full_tensor(n, p)).detach()
+                              .float().flatten().cpu() for n, p in trained])
+
+    if phase == "pretrain":
+        step = make_pretrain_step(model, plan, tx, parallel=par)
+        one = lambda s: step(s, batch, 0)[1]["loss_rec"]  # noqa: E731
+    else:
+        step = make_supervised_step(model, phase, tx, parallel=par)
+        metrics = init_metric_states(model.head_specs)
+        one = lambda s: step(s, batch, metrics)[2]["loss_pred"]  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "launches": [], "before": [], "after": []}
+    pools, stale = (vit.attentive_pool, heads.pool_forward), []
+
+    def checked(pool):  # each bf16 weight a pool kernel gets, against the weight given
+        def call(*args, **kwargs):
+            w16 = kwargs.get("w_kv_bf16")
+            if w16 is not None:
+                stale.append(not torch.equal(w16, args[3].detach().to(torch.bfloat16)))
+            return pool(*args, **kwargs)
+        return call
+
+    vit.attentive_pool, heads.pool_forward = (checked(f) for f in pools)
+    try:
+        for i in range(steps):
+            if i == 1 and kv:
+                with torch.no_grad():
+                    for p in kv:
+                        local(p).mul_(PAR_KV_SCALE)
+            out["before"].append(whole())
+            counts0 = kernel_counts()
+            out["losses"].append(float(one(state)))
+            out["launches"].append([a - b for a, b in zip(kernel_counts(), counts0)])
+            out["after"].append(whole())
+    finally:
+        vit.attentive_pool, heads.pool_forward = pools
+    out["kv_bf16_calls"], out["kv_bf16_stale"] = len(stale), sum(stale)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+    for i in range(timed):
+        marks[i].record()
+        one(state)
+    marks[-1].record()
+    torch.cuda.synchronize()
+    out["step_ms"] = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["pool_weights"] = len(kv)
+    del model, state, step, tx, par
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_compare(name: str, got: dict, want: dict) -> dict:
+    """A wrapped run against the unwrapped one: each checked step's loss
+    (``STEP_LOSS_RTOL``), its update's cosine (``GRAD_COS_MIN``) and the
+    distance of the parameters after it relative to the update's norm
+    (``STEP_UPDATE_RTOL``), the kernel launches a step equal."""
+    rows = []
+    for i in range(len(want["losses"])):
+        w_after, g_after = want["after"][i].cuda(), got["after"][i].cuda()
+        upd_w = w_after - want["before"][i].cuda()
+        upd_g = g_after - got["before"][i].cuda()
+        rows.append({
+            "step": i + 1, "loss": got["losses"][i], "loss_unwrapped": want["losses"][i],
+            "loss_rel_err": abs(got["losses"][i] - want["losses"][i]) / abs(want["losses"][i]),
+            "update_cosine": torch.nn.functional.cosine_similarity(upd_g, upd_w, dim=0).item(),
+            "params_dist_over_update": ((g_after - w_after).norm()
+                                        / upd_w.norm()).item(),
+            "launches": got["launches"][i], "launches_unwrapped": want["launches"][i]})
+    bad = [r for r in rows if not (
+        math.isfinite(r["loss"]) and r["loss_rel_err"] <= STEP_LOSS_RTOL
+        and r["update_cosine"] >= GRAD_COS_MIN
+        and r["params_dist_over_update"] <= STEP_UPDATE_RTOL
+        and r["launches"] == r["launches_unwrapped"] and any(r["launches"]))]
+    if bad:
+        raise AssertionError(f"parallel {name}: wrapped steps disagree with unwrapped: {bad}")
+    if got["kv_bf16_stale"] or want["kv_bf16_stale"] or (
+            got["kv_bf16_calls"] != want["kv_bf16_calls"]):
+        raise AssertionError(f"parallel {name}: {got['kv_bf16_stale']} of "
+                             f"{got['kv_bf16_calls']} bf16 pool weights were stale "
+                             f"(unwrapped: {want['kv_bf16_calls']} handed out)")
+    return {"steps": rows, "kv_bf16_calls": got["kv_bf16_calls"],
+            "kv_bf16_stale": got["kv_bf16_stale"],
+            "step_ms": got["step_ms"], "step_ms_unwrapped": want["step_ms"],
+            "peak_memory_bytes": got["peak_memory_bytes"],
+            "peak_memory_bytes_unwrapped": want["peak_memory_bytes"]}
+
+
+def _par_rank(rank: int, store: str, out: str) -> None:
+    """Part (b): one of two DDP ranks sharing the card over gloo (a group
+    this script makes), this rank's 8 rows of the global batch 16, held
+    against one process at batch 16 (``out/reference.pt``)."""
+    from maestro_tpu_torch.conf import DatasetsConfig
+    from maestro_tpu_torch.parallel.distributed import initialize_distributed
+    from maestro_tpu_torch.parallel.mesh import make_mesh
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed("cuda", init_method=f"file://{store}", world_size=2, rank=rank,
+                           backend="gloo")
+    import torch.distributed as dist
+
+    datasets = DatasetsConfig(name_dataset="flair")
+    mesh = make_mesh(2, 1, 1, "cuda")
+    want = torch.load(Path(out) / "reference.pt", weights_only=False)
+    result = {}
+    try:
+        for phase in ("pretrain", "finetune"):
+            batch = make_synthetic_batch(datasets.dataset, 2 * PAR_BATCH, seed=5)
+            rows = {k: v[rank * PAR_BATCH : (rank + 1) * PAR_BATCH] for k, v in batch.items()}
+            zero_counts()
+            got = _par_run(datasets, phase, rows, PAR_STEPS, mesh=mesh, timed=PAR_TIMED)
+            got["plain"] = plain_counts()
+            result[phase] = _par_compare(f"(b) rank {rank} {phase}", got, want[phase])
+            result[phase]["plain_calls"] = got["plain"]
+            if any(got["plain"].values()):
+                raise AssertionError(f"(b) rank {rank}: plain versions ran: {got['plain']}")
+        result["ok"] = True
+    except Exception as exc:  # reported to the parent, which fails the script
+        result = {"ok": False, "error": repr(exc)}
+    torch.save(result, Path(out) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_phase(root, smi: str) -> dict:
+    """Multi-process training on torch.distributed (``parallel/``), at full
+    width: MAE medium, group fusion, the FLAIR-HUB plan.
+
+    (a) one rank over NCCL in this process (a group of one on a free local
+    port, a mesh of 1): pretrain and finetune steps at batch 8 under DDP and
+    under ``fsdp=true``, each held against the unwrapped step on the same
+    batch and masks, step 2 included, with every pool weight scaled between
+    the steps (a stale bf16 copy of the weight would show), and the same
+    kernel launches a step, no plain version; the group is destroyed after.
+    (b) two DDP ranks sharing the card over gloo (spawned; the group made
+    here, no knob): global batch 16, 8 a rank, held against one process at
+    batch 16 on the card, each rank's launches counted.  (c) the CLI under
+    the launcher (``torch.distributed.run --standalone --nproc_per_node=1``,
+    ``trainer.fsdp=true``) over the experiment's FLAIR-HUB tiles, pretrain,
+    probe and finetune 1 epoch each; its finetune checkpoint then loaded in
+    this (plain) process, eval-only, must give the same test metrics.
+    Returns the launches of the wrapped runs by kernel."""
+    import ast
+    import os
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from maestro_tpu_torch import main as cli
+    from maestro_tpu_torch.conf import DatasetsConfig
+    from maestro_tpu_torch.parallel.distributed import initialize_distributed
+    from maestro_tpu_torch.parallel.mesh import make_mesh
+    from maestro_tpu_torch.train import checkpoint as ckpt
+    from maestro_tpu_torch.utils.testing import make_synthetic_batch
+
+    t_phase = time.perf_counter()
+    datasets = DatasetsConfig(name_dataset="flair")
+    launches = dict.fromkeys(KERNEL_COUNTERS, 0)
+    report = {"card": smi, "batch_per_rank": PAR_BATCH, "steps_checked": PAR_STEPS,
+              "pool_weight_scale_between_steps": PAR_KV_SCALE}
+
+    def add(runs):
+        for run in runs:
+            for counts in run["launches"]:
+                for key, n in zip(KERNEL_COUNTERS, counts):
+                    launches[key] += n
+
+    # ---- (a) one rank over NCCL
+    t0 = time.perf_counter()
+    initialize_distributed("cuda", init_method=f"tcp://localhost:{_free_port()}",
+                           world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, 1, "cuda")
+        part_a = {"backend": dist.get_backend()}
+        for phase in ("pretrain", "finetune"):
+            batch = make_synthetic_batch(datasets.dataset, PAR_BATCH, seed=4)
+            zero_counts()
+            want = _par_run(datasets, phase, batch, PAR_STEPS, timed=PAR_TIMED)
+            for mode in ("ddp", "fsdp"):
+                zero_counts()
+                got = _par_run(datasets, phase, batch, PAR_STEPS, mesh=mesh,
+                               fsdp=mode == "fsdp", timed=PAR_TIMED)
+                plain = plain_counts()
+                if any(plain.values()):
+                    raise AssertionError(f"parallel (a) {mode} {phase}: plain versions ran: {plain}")
+                add([got])
+                part_a[f"{phase}_{mode}"] = {**_par_compare(f"(a) {mode} {phase}", got, want),
+                                             "plain_calls": plain}
+                del got
+            del want
+    finally:
+        dist.destroy_process_group()
+    part_a["seconds"] = time.perf_counter() - t0
+    report["a_one_rank_nccl"] = part_a
+    emit({"parallel_a": part_a})
+
+    # ---- (b) two DDP ranks sharing the card over gloo, against one process at 16
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="maestro_parallel_"))
+    try:
+        ref = {}
+        for phase in ("pretrain", "finetune"):
+            batch = make_synthetic_batch(datasets.dataset, 2 * PAR_BATCH, seed=5)
+            ref[phase] = _par_run(datasets, phase, batch, PAR_STEPS, timed=PAR_TIMED)
+        torch.save(ref, tmp / "reference.pt")
+        del ref
+        torch.cuda.empty_cache()
+        mp.spawn(_par_rank, args=(str(tmp / "store"), str(tmp)), nprocs=2, join=True)
+        ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    failed = [r["error"] for r in ranks if not r["ok"]]
+    if failed:
+        raise AssertionError(f"parallel (b): {failed}")
+    part_b = {"backend": "gloo", "ranks": 2, "global_batch": 2 * PAR_BATCH,
+              "per_rank": [{k: v for k, v in r.items() if k != "ok"} for r in ranks],
+              "seconds": time.perf_counter() - t0}
+    for r in ranks:
+        for phase in ("pretrain", "finetune"):
+            for row in r[phase]["steps"]:
+                for key, n in zip(KERNEL_COUNTERS, row["launches"]):
+                    launches[key] += n
+    report["b_two_ranks_gloo"] = part_b
+    emit({"parallel_b": part_b})
+
+    # ---- (c) the CLI under the launcher, then eval-only in this process
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="maestro_parallel_cli_"))
+    try:
+        base = [f"datasets.root_dir={root}", "datasets.name_dataset=flair",
+                "datasets.flair.rel_dir=", "model.model_size=medium", "model.fusion_mode=group",
+                "model.inter_depth=3", "model.use_ema=true", "trainer.compute_dtype=bfloat16",
+                "data.loader=threads", f"data.num_workers={EXP_WORKERS}",
+                "opt_finetune.monitor=cosia/average_iou_val", "run.logged_images_per_epoch=1",
+                f"run.exp_dir={tmp / 'runs'}"]
+        base += [f"opt_{p}.batch_size={EXP_BATCH}" for p in PAR_EPOCHS]
+        argv = base + ["run.exp_name=launcher", "trainer.fsdp=true"]
+        argv += [f"opt_{p}.epochs={n}" for p, n in PAR_EPOCHS.items()]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        repo = Path(__file__).resolve().parent
+        env["PYTHONPATH"] = os.pathsep.join(p for p in (str(repo), env.get("PYTHONPATH")) if p)
+        t_run = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node=1", "-m", "maestro_tpu_torch.main", *argv],
+            cwd=str(repo), env=env, capture_output=True, text=True, timeout=900)
+        run_s = time.perf_counter() - t_run
+        if proc.returncode != 0:
+            raise AssertionError(f"parallel (c): the launcher run failed (rc "
+                                 f"{proc.returncode}):\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-6000:]}")
+        printed = {line.split(" ", 1)[0]: ast.literal_eval(line.split(" ", 1)[1])
+                   for line in proc.stdout.splitlines()
+                   if line.split(" ", 1)[0] in PAR_EPOCHS and " {" in line}
+        run_dir = next((tmp / "runs" / "launcher").iterdir())
+        path = ckpt.find_latest_checkpoint(run_dir / "checkpoints", "finetune")
+        if path is None or set(printed) != set(PAR_EPOCHS):
+            raise AssertionError(f"parallel (c): phases printed {sorted(printed)}, "
+                                 f"finetune checkpoint {path}")
+        # the run joined a group of one, built the mesh and sharded the model
+        # under FSDP2 (a unit per block and head), as its checkpoint records
+        placed = ckpt.load_meta(path).get("parallel")
+        if not placed or placed["mesh"] != {"data": 1, "model": 1} or not placed["fsdp"] or (
+                placed["processes"] != 1 or placed["fsdp_units"] < 2
+                or placed["sharded_parameters"] != placed["parameters"]):
+            raise AssertionError(f"parallel (c): the launcher run was not placed on a mesh "
+                                 f"under FSDP2: meta.json has {placed}")
+        zero_counts()
+        t_eval = time.perf_counter()
+        evald = cli.main(base + ["run.exp_name=eval_only", "run.eval_only=true",
+                                 f"run.load_ckpt_path={path}", "opt_pretrain.epochs=0",
+                                 "opt_probe.epochs=0", "opt_finetune.epochs=1"])
+        eval_s = time.perf_counter() - t_eval
+        plain = plain_counts()
+        got, want = evald["finetune"].test_metrics, printed["finetune"]
+        diff = {k: abs(got.get(k, float("nan")) - v) for k, v in want.items()}
+        if set(got) != set(want) or not all(d <= 1e-5 for d in diff.values()) or any(
+                plain.values()):
+            raise AssertionError(f"parallel (c): eval-only test metrics {got} vs the launcher "
+                                 f"run's {want} (plain calls {plain})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    part_c = {"command": "python -m torch.distributed.run --standalone --nproc_per_node=1 -m "
+                         "maestro_tpu_torch.main ... trainer.fsdp=true",
+              "epochs": PAR_EPOCHS, "batch": EXP_BATCH, "run_seconds": run_s,
+              "eval_only_seconds": eval_s, "test_metrics": want,
+              "eval_only_max_abs_diff": max(diff.values()), "placement": placed,
+              "launcher_stderr_tail": proc.stderr[-600:], "seconds": time.perf_counter() - t0}
+    report["c_cli_launcher"] = part_c
+    emit({"parallel_c": part_c})
+    report["seconds"] = time.perf_counter() - t_phase
+    emit({"parallel": {k: report[k] for k in ("card", "seconds")}})
+    return launches
+
+
 def main() -> None:
     want_profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -2770,6 +3136,15 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     datasets = DatasetsConfig(name_dataset="flair")
+    if "--serve-only" in sys.argv[1:]:  # the serving path alone (step 4 below)
+        model, _ = build_model(
+            datasets, MaskConfig(), ModelConfig(model_size="medium", fusion_mode="group",
+                                                inter_depth=3),
+            dtype=torch.bfloat16, device="cuda", generator=torch.Generator().manual_seed(0))
+        batches = {b: make_synthetic_batch(datasets.dataset, b, seed=b) for b in REQUEST_BATCHES}
+        serving_phase(model, batches, make_predict_fn(model, "finetune"), attention, attn_pool,
+                      vit, want_profile)
+        return
 
     # ---- 3. every kernel vs its plain version
     attn_err = attention_fwd_checks(attention, gen)
@@ -2852,6 +3227,9 @@ def main() -> None:
         rel = released_phase(tiles, smi, card, datasets, work)
         bc = baseline_cli_phase(tiles, smi, pretrained=rel["dinov2_flair"])
         emit({"released_seconds": time.perf_counter() - t0})
+        # ---- 5g. multi-process training (parallel/): DDP and FSDP2 on one
+        # rank over NCCL, two DDP ranks over gloo, the CLI under the launcher
+        pl = parallel_phase(tiles, smi)
     finally:
         shutil.rmtree(tiles, ignore_errors=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -3023,13 +3401,15 @@ def main() -> None:
     extra = lambda key: {"pretrain_eval": pe.get(key, 0), "skip_nonfinite": sk.get(key, 0),  # noqa: E731
                          "finetune_remat_dots": rd.get(key, 0), "experiment": ex[key],
                          "baselines": bl["launches"].get(key, 0), "released": rel["launches"][key],
-                         "baseline_cli": bc[key]}
+                         "baseline_cli": bc[key], "parallel": pl[key]}
     loss_entry = lambda direction, fn_name, line, key, err, per_step, times: {  # noqa: E731
         "name": fn_name, "route": "cuda", "source": "maestro_tpu_torch/csrc/fused_loss.cu",
         "replaces": f"maestro_tpu/ops/fused_loss.py:{line}",
-        "launches": tl[key] + ex[key] + rel["launches"][key], "launches_per_step": per_step,
+        "launches": tl[key] + ex[key] + rel["launches"][key] + pl[key],
+        "launches_per_step": per_step,
         "launches_by_path": {"serve": 0, "train": tl[key], "finetune": 0, "probe": 0,
-                             "experiment": ex[key], "released": rel["launches"][key]},
+                             "experiment": ex[key], "released": rel["launches"][key],
+                             "parallel": pl[key]},
         "max_abs_err": err, **loss_totals[direction],
         "bound_by": max(loss_kinds[direction], key=loss_kinds[direction].get),
         "bound_share": loss_totals[direction]["bound_ms"] / loss_totals[direction]["ms"],

@@ -184,13 +184,13 @@ class BaselineConfig:
 class TrainerConfig:
     """Execution config: device layout, precision policy, checkpointing."""
 
-    # device mesh: data-parallel x model(tensor)-parallel; -1 = all remaining.
-    # The port runs one device: mesh_data and mesh_model must be 1 or -1
+    # process mesh: data-parallel x model(tensor)-parallel; -1 = all remaining
+    # (one device a process; parallel/mesh.py)
     mesh_data: int = -1
     mesh_model: int = 1
-    # outer pure data-parallel "replica" axis (multi-slice); not ported
+    # outer pure data-parallel "replica" axis (multi-slice; HSDP under fsdp)
     mesh_replica: int = 1
-    # weight / optimizer sharding over the data axis; not ported
+    # weight / optimizer sharding over the data axis (FSDP2)
     fsdp: bool = False
     # compute dtype for matmuls/activations; params and optimizer state stay fp32
     compute_dtype: str = "bfloat16"

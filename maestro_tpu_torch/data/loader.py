@@ -6,7 +6,11 @@ decoding is numpy and releases the GIL inside h5py/imageio/numpy reads);
 ``mp_loader.ProcessBatchLoader`` reads in worker processes.  Both yield the
 same batches in the same order (``epoch_batches``); ``resolve_loader`` picks
 one as the JAX package does.  All splits iterate shuffled with drop_last
-(reference data.py:38-44).
+(reference data.py:38-44).  In a multi-process run each process reads its
+shard of the sample order, ``order[shard_index::shard_count]``, so the
+shards are disjoint and the global batch b holds the samples of one
+process's batch b of ``shard_count`` times the size (reference: Lightning's
+DistributedSampler).
 """
 
 from __future__ import annotations
@@ -25,13 +29,17 @@ def collate(samples: list[dict[str, np.ndarray]]) -> dict[str, np.ndarray]:
 
 
 def epoch_batches(n: int, batch_size: int, shuffle: bool, drop_last: bool, seed: int,
-                  epoch: int) -> list[np.ndarray]:
+                  epoch: int, shard_index: int = 0, shard_count: int = 1) -> list[np.ndarray]:
     """The sample indices of each batch of one epoch: a pure function of
     (seed, epoch), so a restarted process reproduces it (the mid-epoch
-    resume) and both loaders read the same batches."""
+    resume) and both loaders read the same batches; a process reads its
+    shard of the order (``n // shard_count`` samples, the same count on
+    every process)."""
     order = np.arange(n)
     if shuffle:
         np.random.default_rng([seed, epoch]).shuffle(order)
+    n = n // shard_count
+    order = order[shard_index::shard_count][:n]
     nb = n // batch_size if drop_last else (n + batch_size - 1) // batch_size
     return [order[i * batch_size : (i + 1) * batch_size] for i in range(nb)]
 
@@ -48,6 +56,8 @@ class EOBatchLoader:
         num_workers: int = 8,
         prefetch: int = 2,
         seed: int = 0,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
@@ -56,6 +66,7 @@ class EOBatchLoader:
         self.num_workers = max(num_workers, 1)
         self.prefetch = prefetch
         self.seed = seed
+        self.shard_index, self.shard_count = shard_index, shard_count
         # per-epoch order is a pure function of (seed, epoch) so a restarted
         # process reproduces it exactly (mid-epoch preemption resume); the
         # runtime drives set_epoch, standalone use auto-increments per pass
@@ -68,7 +79,7 @@ class EOBatchLoader:
         self._auto_epoch = False
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.shard_count
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -77,7 +88,8 @@ class EOBatchLoader:
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(self.epoch)  # per-(epoch, idx) sample rng
         batches = epoch_batches(len(self.dataset), self.batch_size, self.shuffle,
-                                self.drop_last, self.seed, self.epoch)
+                                self.drop_last, self.seed, self.epoch,
+                                self.shard_index, self.shard_count)
         if self.skip_batches:
             batches = batches[self.skip_batches :]  # no decode for skipped
             self.skip_batches = 0
@@ -156,8 +168,12 @@ def pin_loader(data_cfg) -> str:
     """Resolve ``data_cfg.loader`` once for the run and write the concrete
     value back, so ``config_resolved.json`` and checkpoint meta record it (an
     interrupted run must resume under the same loader; fit_phase refuses
-    otherwise)."""
-    data_cfg.loader = resolve_loader(data_cfg)
+    otherwise).  ``resolve_loader`` reads the host's core count, so in a
+    multi-process run process 0's choice is broadcast and every process
+    uses the same pipeline."""
+    from maestro_tpu_torch.parallel.distributed import broadcast_object
+
+    data_cfg.loader = broadcast_object(resolve_loader(data_cfg))
     return data_cfg.loader
 
 
@@ -169,12 +185,16 @@ def make_loader(
     batch_size: int,
     seed: int = 0,
     group=None,
+    shard_index: int = 0,
+    shard_count: int = 1,
 ):
     """Build (dataset, loader) for one (stage, phase), mirroring SSLDataModule.
 
     ``data_cfg.loader`` selects the thread pool ("threads"), the worker
     processes ("grain") or "auto" (``resolve_loader``).  ``group``: an
     ``mp_loader.WorkerGroup`` whose workers the process loader shares.
+    ``batch_size`` is the per-process batch; (``shard_index``,
+    ``shard_count``) the process's shard of the sample order.
     """
     from maestro_tpu_torch.data.datasets import DATASET_CLASSES
 
@@ -195,7 +215,8 @@ def make_loader(
         seed=seed,
     )
     kwargs = {"batch_size": batch_size, "shuffle": True, "drop_last": True,
-              "num_workers": data_cfg.num_workers, "prefetch": data_cfg.prefetch, "seed": seed}
+              "num_workers": data_cfg.num_workers, "prefetch": data_cfg.prefetch, "seed": seed,
+              "shard_index": shard_index, "shard_count": shard_count}
     if resolve_loader(data_cfg) == "grain":
         from maestro_tpu_torch.data.mp_loader import ProcessBatchLoader
 
@@ -204,7 +225,7 @@ def make_loader(
 
 
 def make_loaders(datasets_cfg, data_cfg, ssl_phase: str, batch_size: int,
-                 seed: int = 0) -> dict:
+                 seed: int = 0, shard_index: int = 0, shard_count: int = 1) -> dict:
     """The train, val and test loaders of one phase; the worker processes
     ("grain") are one ``WorkerGroup`` for the three, which the runtime reads
     one at a time."""
@@ -214,5 +235,6 @@ def make_loaders(datasets_cfg, data_cfg, ssl_phase: str, batch_size: int,
 
         group = WorkerGroup(data_cfg.num_workers, data_cfg.prefetch)
     return {stage: make_loader(datasets_cfg, data_cfg, stage, ssl_phase, batch_size, seed,
-                               group=group)[1]
+                               group=group, shard_index=shard_index,
+                               shard_count=shard_count)[1]
             for stage in ("train", "val", "test")}

@@ -245,9 +245,12 @@ class ProcessBatchLoader:
         prefetch: int = 2,
         seed: int = 0,
         group: WorkerGroup | None = None,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard_index, self.shard_count = shard_index, shard_count
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
@@ -263,7 +266,7 @@ class ProcessBatchLoader:
         self._auto_epoch = False
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.shard_count
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -275,7 +278,8 @@ class ProcessBatchLoader:
     def __iter__(self):
         epoch = self.epoch
         batches = epoch_batches(len(self.dataset), self.batch_size, self.shuffle,
-                                self.drop_last, self.seed, epoch)
+                                self.drop_last, self.seed, epoch,
+                                self.shard_index, self.shard_count)
         if self.skip_batches:
             batches = batches[self.skip_batches :]  # no read for skipped
             self.skip_batches = 0

@@ -6,7 +6,10 @@ reference's hydra-zen CLI (reference main.py:22-25) without the Hydra
 dependency: ``group.field=value`` assigns into ExperimentConfig /
 DatasetsConfig with type coercion from the dataclass annotations — the same
 overrides as the JAX package's root ``main.py``.  The run goes to a CUDA
-device; ``main(argv, device="cpu")`` runs it on the CPU.
+device; ``main(argv, device="cpu")`` runs it on the CPU.  Under a launcher
+(``torchrun --nproc_per_node=N -m maestro_tpu_torch.main ...``) each process
+joins the group (NCCL on the card, gloo on the CPU) and the processes share
+process 0's run uuid.
 """
 
 from __future__ import annotations
@@ -95,12 +98,20 @@ def main(argv: list[str] | None = None, *, device="cuda"):
     from maestro_tpu_torch.models.mae import resolve_device
 
     resolve_device(device)
+    from maestro_tpu_torch.parallel.distributed import (
+        broadcast_object,
+        initialize_distributed,
+        is_primary,
+    )
+
+    initialize_distributed(device)
 
     if cfg.run.reproducible:
         import numpy as np
 
         np.random.seed(cfg.run.seed)
-    cfg.run.exp_uuid = cfg.run.exp_uuid or uuid.uuid4().hex[:8]
+    # one run directory for all processes: process 0 draws, the others adopt
+    cfg.run.exp_uuid = cfg.run.exp_uuid or broadcast_object(uuid.uuid4().hex[:8])
 
     # pin data.loader="auto" to one concrete choice for the whole run BEFORE
     # dumping the resolved config, so the record shows what actually ran
@@ -110,19 +121,20 @@ def main(argv: list[str] | None = None, *, device="cuda"):
 
     workdir = Path(cfg.run.exp_dir) / cfg.run.exp_name / cfg.run.exp_uuid
     workdir.mkdir(parents=True, exist_ok=True)
-    (workdir / "config_resolved.json").write_text(
-        json.dumps(
-            {
-                "experiment": dataclasses.asdict(cfg),
-                "datasets": {
-                    "root_dir": datasets.root_dir,
-                    "name_dataset": datasets.name_dataset,
+    if is_primary():
+        (workdir / "config_resolved.json").write_text(
+            json.dumps(
+                {
+                    "experiment": dataclasses.asdict(cfg),
+                    "datasets": {
+                        "root_dir": datasets.root_dir,
+                        "name_dataset": datasets.name_dataset,
+                    },
                 },
-            },
-            indent=2,
-            default=str,
-        ),
-    )
+                indent=2,
+                default=str,
+            ),
+        )
 
     from maestro_tpu_torch.train.runtime import run_experiment
 

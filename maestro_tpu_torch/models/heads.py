@@ -119,11 +119,13 @@ class ChunkedSegHead(nn.Module):
         y = y.reshape(b, rows, g, k, p, p).permute(0, 3, 1, 4, 2, 5)
         return y.reshape(b, k, rows * p, g * p)
 
-    def _chunk(self, row0: int, *xs: torch.Tensor) -> torch.Tensor:
-        """One ref-grid row chunk: resize-slice + concat + reduce + proj."""
+    def _chunk(self, row0: int, w_kv, w16, *xs: torch.Tensor) -> torch.Tensor:
+        """One ref-grid row chunk: resize-slice + concat + reduce + proj
+        (``w_kv`` / ``w16``: the pool's whole weight and its bf16 copy)."""
         x_ref = self._x_ref(row0, xs)
-        y = self.reduce(x_ref) if self.type_head == "attentive" else x_ref.mean(dim=1)
-        return self._pixels(y)
+        if self.type_head != "attentive":
+            return self._pixels(x_ref.mean(dim=1))
+        return self._pixels(self.reduce(x_ref, w_kv, w16))
 
     def _fused_pool_shape(self, xs) -> bool:
         b, e = xs[0].shape[0], xs[0].shape[-1]
@@ -131,28 +133,36 @@ class ChunkedSegHead(nn.Module):
         return (self.type_head == "attentive"
                 and self.reduce._use_fused_pool(torch.empty(shape, device="meta")))
 
-    def _chunk_recomputed(self, row0: int, xs: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    def _chunk_recomputed(self, row0: int, xs: tuple[torch.Tensor, ...], w_kv,
+                          w16) -> torch.Tensor:
         """``_chunk`` with its activations recomputed in the backward, as the
         JAX package remats each chunk keeping only the fused pool's residuals
         (out, m, den): the backward replays the resize that rebuilds the
         chunk's grid, never the pool's forward.  Without the fused pool the
         whole chunk is recomputed."""
         if not self._fused_pool_shape(xs):
-            return checkpoint(self._chunk, row0, *xs, use_reentrant=False,
+            return checkpoint(self._chunk, row0, w_kv, w16, *xs, use_reentrant=False,
                               preserve_rng_state=False)
         red = self.reduce
         out = _RecomputedChunkPool.apply(
             lambda parts: self._x_ref(row0, parts).to(red.dtype), red.heads, len(xs),
-            red._kv_weight_bf16(xs[0]), *xs, red.norm.weight, red.norm.bias, red.to_kv.weight,
-            red.query)
+            w16, *xs, red.norm.weight, red.norm.bias, w_kv, red.query)
         return self._pixels(layer_norm(out, red.norm_fc, red.dtype))
 
     def forward(self, xs: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        # the pool's weight whole (gathered under tensor parallelism) and its
+        # bf16 copy for the fused pool, taken once for all the chunks
+        w_kv = w16 = None
+        if self.type_head == "attentive":
+            w_kv = self.reduce.kv_weight()
+            if self._fused_pool_shape(xs):
+                w16 = self.reduce.kv_weight_bf16(xs[0], w_kv)
         # several chunks under autograd: each recomputed in the backward (the
         # reference's remat-scan), so no chunk's grid outlives its forward
         recompute = torch.is_grad_enabled() and self.ref_grid // self.chunk_rows > 1
         chunks = [
-            self._chunk_recomputed(row0, xs) if recompute else self._chunk(row0, *xs)
+            self._chunk_recomputed(row0, xs, w_kv, w16) if recompute
+            else self._chunk(row0, w_kv, w16, *xs)
             for row0 in range(0, self.ref_grid, self.chunk_rows)
         ]
         pixels = chunks[0] if len(chunks) == 1 else torch.cat(chunks, dim=2)

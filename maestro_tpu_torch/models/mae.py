@@ -337,7 +337,8 @@ class MaestroMAE(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, batch: dict, phase: str = "finetune", return_pixels: bool = True,
-                *, generator: torch.Generator | None = None, from_features: bool = False):
+                *, generator: torch.Generator | None = None, from_features: bool = False,
+                mask_rows: tuple[int, int] | None = None):
         """Forward pass.
 
         probe/finetune -> logits dict per target.  pretrain -> (rec, mask,
@@ -353,6 +354,10 @@ class MaestroMAE(nn.Module):
         token space — rec[name] is [B, D, L, C*p*p] in (C, ph, pw) feature
         order with a [B, D, L] token mask — for single-band-group modalities,
         skipping the pixel shuffle the loss would immediately undo.
+
+        ``mask_rows=(offset, global_batch)`` (a data-parallel rank's pretrain
+        forward): the masks are drawn for the global batch, as one process
+        draws them, and the rank keeps the rows of its samples.
         """
         if phase not in PHASES:
             msg = f"Invalid phase {phase!r}; expected {PHASES}."
@@ -370,10 +375,11 @@ class MaestroMAE(nn.Module):
         if generator is None:
             msg = "the pretrain forward draws its masks from a generator: pass generator="
             raise ValueError(msg)
-        return self.pretrain_forward(batch, generator, return_pixels)
+        return self.pretrain_forward(batch, generator, return_pixels, mask_rows)
 
     def pretrain_forward(self, batch: dict, generator: torch.Generator,
-                         return_pixels: bool = True):
+                         return_pixels: bool = True,
+                         mask_rows: tuple[int, int] | None = None):
         """Masking, encoders on the kept tokens, decoders, reconstruction."""
         plan = self.plan
         batch = self.resize_and_rescale(batch)
@@ -382,9 +388,11 @@ class MaestroMAE(nn.Module):
         streams = plan.group(tokens)
 
         # --- structural + random masking, encode kept tokens
+        offset, total = mask_rows or (0, batch_size)
         struct, noise = (
-            masking.to_device(d, self.device)
-            for d in masking.draw_masks(plan, generator, batch_size)
+            masking.to_device(masking.local_rows(plan, d, offset, batch_size)
+                              if total != batch_size else d, self.device)
+            for d in masking.draw_masks(plan, generator, total)
         )
         kept, mask_rec = {}, {}
         for name, stream in plan.streams.items():

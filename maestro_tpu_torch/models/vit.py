@@ -25,6 +25,7 @@ from torch.utils.checkpoint import (
 
 from maestro_tpu_torch.ops.attention import mha_qkv
 from maestro_tpu_torch.ops.attn_pool import attentive_pool
+from maestro_tpu_torch.parallel.mesh import copy_to_group, gather_pieces, reduce_from_group
 
 LN_EPS = 1e-5
 
@@ -33,6 +34,16 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
     """``layer(x)`` with input, weight and bias cast to ``dtype``."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def row_dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, group) -> torch.Tensor:
+    """``dense`` of a layer split by input feature over the tensor-parallel
+    ``group``: the partial products are summed over the group before the
+    bias (``dense`` itself without a group)."""
+    if group is None:
+        return dense(x, layer, dtype)
+    y = reduce_from_group(F.linear(x.to(dtype), layer.weight.to(dtype)), group)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 def layer_norm(x: torch.Tensor, layer: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -64,7 +75,10 @@ def normal_parameter(shape, generator: torch.Generator, device, std: float = 1.0
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention; inner width = heads * dim_head."""
+    """Multi-head self-attention; inner width = heads * dim_head.  Under
+    tensor parallelism (``tp``, set by ``parallel.mesh.Parallel``) the module
+    holds ``heads`` of the heads: its rows of q, k and v and its columns of
+    ``out``."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, dtype: torch.dtype,
                  generator: torch.Generator, device) -> None:
@@ -76,15 +90,18 @@ class Attention(nn.Module):
         self.out = nn.Linear(inner, dim, device=device)
         init_linear(self.qkv, generator)
         init_linear(self.out, generator)
+        self.tp = None  # the tensor-parallel group, if any
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
         y = layer_norm(x, self.norm, self.dtype)
+        if self.tp is not None:
+            y = copy_to_group(y, self.tp)
         qkv = dense(y, self.qkv, self.dtype)
         # q, k, v are strided views of the fused projection (no copies), and
         # on the card its gradient arrives as one contiguous tensor
         out = mha_qkv(qkv.view(b, l, 3, self.heads, self.dim_head), self.dim_head**-0.5)
-        return dense(out.reshape(b, l, -1), self.out, self.dtype)
+        return row_dense(out.reshape(b, l, -1), self.out, self.dtype, self.tp)
 
 
 def _recompute(fn, *args, context_fn=None):
@@ -125,12 +142,15 @@ class FeedForward(nn.Module):
         self.fc2 = nn.Linear(hidden_dim, dim, device=device)
         init_linear(self.fc1, generator)
         init_linear(self.fc2, generator)
+        self.tp = None  # the tensor-parallel group: fc1 split by output, fc2 by input
 
     def _tail(self, h: torch.Tensor) -> torch.Tensor:
-        return dense(F.gelu(h, approximate="none"), self.fc2, self.dtype)
+        return row_dense(F.gelu(h, approximate="none"), self.fc2, self.dtype, self.tp)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = layer_norm(x, self.norm, self.dtype)
+        if self.tp is not None:
+            y = copy_to_group(y, self.tp)
         h = dense(y, self.fc1, self.dtype)
         return _recompute(self._tail, h) if self.remat == "gelu" else self._tail(h)
 
@@ -217,20 +237,22 @@ class AttentiveReduce(nn.Module):
         init_linear(self.to_kv, generator)
         self.query = normal_parameter((dim,), generator, device)
         self.norm_fc = nn.LayerNorm(dim, eps=LN_EPS, device=device)
-        self._kv_bf16: tuple[tuple[int, int], torch.Tensor] | None = None
+        self.tp = None  # the tensor-parallel group: to_kv split by head in k and v
 
-    def _kv_weight_bf16(self, x: torch.Tensor) -> torch.Tensor | None:
-        """On the card, where the fused pool multiplies ``to_kv.weight`` in
-        bf16, a bf16 copy kept until the weight changes (one cast, not one per
-        chunk of every request); it is not differentiable, and the pool sends
-        its gradient to the fp32 weight itself."""
-        if not x.is_cuda:
-            return None
+    def kv_weight(self) -> torch.Tensor:
+        """The whole ``to_kv`` weight: under tensor parallelism gathered from
+        the ranks' head pieces (the pool's kernel takes it whole), its
+        gradient sliced back to this rank's piece."""
         w = self.to_kv.weight
-        key = (w._version, w.data_ptr())
-        if self._kv_bf16 is None or self._kv_bf16[0] != key:
-            self._kv_bf16 = (key, w.detach().to(torch.bfloat16))
-        return self._kv_bf16[1]
+        return w if self.tp is None else gather_pieces(w, self.tp, 0, 2)
+
+    @staticmethod
+    def kv_weight_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor | None:
+        """On the card, where the fused pool multiplies the weight ``w`` in
+        bf16, its bf16 copy (None on the CPU).  A caller that pools several
+        chunks takes it once and hands it to each; it is not differentiable,
+        and the pool sends its gradient to the fp32 weight itself."""
+        return w.detach().to(torch.bfloat16) if x.is_cuda else None
 
     def _use_fused_pool(self, x: torch.Tensor) -> bool:
         """The fused pool serves the many-position date reduction; its tiling
@@ -242,22 +264,29 @@ class AttentiveReduce(nn.Module):
             and e % self.heads == 0
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, w_kv: torch.Tensor | None = None,
+                w_kv_bf16: torch.Tensor | None = None) -> torch.Tensor:
+        """``w_kv`` / ``w_kv_bf16``: ``kv_weight()`` and its ``kv_weight_bf16``
+        when the caller already has them."""
         squeeze = x.ndim == 3
         if squeeze:  # [B, D, C] == [B, D, 1, C] pooled over D
             x = x[:, :, None, :]
         b, d, l, _ = x.shape
         dh = self.dim // self.heads
+        if w_kv is None:
+            w_kv = self.kv_weight()
 
         if self._use_fused_pool(x):
+            if w_kv_bf16 is None:
+                w_kv_bf16 = self.kv_weight_bf16(x, w_kv)
             out, _, _ = attentive_pool(
-                x.to(self.dtype), self.norm.weight, self.norm.bias, self.to_kv.weight,
-                self.query, self.heads, LN_EPS, w_kv_bf16=self._kv_weight_bf16(x),
+                x.to(self.dtype), self.norm.weight, self.norm.bias, w_kv,
+                self.query, self.heads, LN_EPS, w_kv_bf16=w_kv_bf16,
             )
             return layer_norm(out, self.norm_fc, self.dtype)
 
         y = layer_norm(x, self.norm, self.dtype)
-        kv = dense(y, self.to_kv, self.dtype)
+        kv = F.linear(y.to(self.dtype), w_kv.to(self.dtype))
         k, v = kv.split(self.dim, dim=-1)
         k = k.reshape(b, d, l, self.heads, dh)
         v = v.reshape(b, d, l, self.heads, dh)

@@ -254,7 +254,8 @@ def masked_patchnorm_sums(t, r, m, norm_slices, square: bool):
 
 
 def fused_reconstruction_loss(plan, targets, rec, masks, loss_type: str = "l1_norm",
-                              stage_dtype: torch.dtype | None = None) -> torch.Tensor:
+                              stage_dtype: torch.dtype | None = None,
+                              count_reduce=None) -> torch.Tensor:
     """Drop-in for ``train.losses.reconstruction_loss`` using the fused kernel.
 
     Accepts per modality either a token-space reconstruction
@@ -267,6 +268,8 @@ def fused_reconstruction_loss(plan, targets, rec, masks, loss_type: str = "l1_no
     ``stage_dtype`` (default bf16 on the card, fp32 on the
     CPU, as the JAX package picks bf16 for its accelerator) is the dtype of the
     patchified staging rows — normalization statistics are always fp32.
+    ``count_reduce`` turns a data-parallel rank's counts into the global
+    batch's (``train.losses``).
     """
     from maestro_tpu_torch.train.losses import (
         EPS_COUNT,
@@ -276,7 +279,9 @@ def fused_reconstruction_loss(plan, targets, rec, masks, loss_type: str = "l1_no
     )
 
     if not loss_type.endswith("_norm"):
-        return reconstruction_loss(plan, targets, rec, masks, loss_type)
+        return reconstruction_loss(plan, targets, rec, masks, loss_type, count_reduce)
+    if count_reduce is None:
+        count_reduce = lambda c: c  # noqa: E731
     square = loss_type.startswith("l2")
     if stage_dtype is None:
         on_card = next(iter(targets.values())).device.type == "cuda"
@@ -290,7 +295,7 @@ def fused_reconstruction_loss(plan, targets, rec, masks, loss_type: str = "l1_no
             target = patch_group_normalize(targets[name].float(), p, spec.norm_groups)
             err = loss_fn(target - rec[name].float())
             m = masks[name].float()
-            fallback[name] = (err * m).sum() / (m.sum() + EPS_COUNT)
+            fallback[name] = (err * m).sum() / (count_reduce(m.sum()) + EPS_COUNT)
             continue
 
         t = patchify_pixels(targets[name].to(stage_dtype), p)
@@ -326,5 +331,6 @@ def fused_reconstruction_loss(plan, targets, rec, masks, loss_type: str = "l1_no
         if name in fallback:
             total = total + weight * fallback[name]
         else:
-            total = total + weight * sums[name][0] / torch.clamp(sums[name][1], min=1e-8)
+            count = count_reduce(sums[name][1])
+            total = total + weight * sums[name][0] / torch.clamp(count, min=1e-8)
     return total / weights

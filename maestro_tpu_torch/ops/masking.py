@@ -87,6 +87,18 @@ def draw_masks(plan: FusionPlan, generator: torch.Generator,
     return struct, noise
 
 
+def local_rows(plan: FusionPlan, draws: dict[str, torch.Tensor], offset: int,
+               size: int) -> dict[str, torch.Tensor]:
+    """Samples ``offset .. offset + size`` of draws made for a larger batch
+    (a data-parallel rank's rows of the global batch's masks; a stream
+    flattened into the batch holds ``batch_factor`` rows a sample)."""
+    out = {}
+    for name, t in draws.items():
+        f = plan.streams[name].batch_factor
+        out[name] = t[offset * f : (offset + size) * f]
+    return out
+
+
 def to_device(masks: dict[str, torch.Tensor], device: torch.device) -> dict[str, torch.Tensor]:
     """``masks`` on ``device``; host tensors go to a CUDA device through
     pinned memory, so the copy does not wait for the work queued before it."""

@@ -45,8 +45,21 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
             yield prefix + (str(key),), np.asarray(value)
 
 
+def _unwrapped(module: nn.Module) -> nn.Module:
+    """The model inside a DDP wrapper (whose names carry a ``module.``
+    prefix); any other module as it is."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    while isinstance(module, DistributedDataParallel):
+        module = module.module
+    return module
+
+
 def flax_path(module: nn.Module, name: str) -> tuple[tuple[str, ...], bool]:
-    """(flax path, transpose?) of the parameter ``name`` of ``module``."""
+    """(flax path, transpose?) of the parameter ``name`` of ``module`` (a DDP
+    wrapper reads as the model inside it)."""
+    if module is not _unwrapped(module):
+        module, name = _unwrapped(module), name.removeprefix("module.")
     path: list[str] = []
     owner: nn.Module = module
     parts = name.split(".")
@@ -66,6 +79,7 @@ def flax_path(module: nn.Module, name: str) -> tuple[tuple[str, ...], bool]:
 
 def flax_names(module: nn.Module) -> dict[tuple[str, ...], tuple[str, bool]]:
     """Flax path -> (parameter name, transpose?) of every parameter of ``module``."""
+    module = _unwrapped(module)
     out = {}
     for name, _ in module.named_parameters():
         path, transpose = flax_path(module, name)
@@ -85,6 +99,7 @@ def match_jax_params(
     """
     if "params" in tree and isinstance(tree["params"], Mapping):
         tree = tree["params"]
+    module = _unwrapped(module)
     leaves = dict(_flatten(tree))
     params = dict(module.named_parameters())
     values: dict[str, np.ndarray] = {}

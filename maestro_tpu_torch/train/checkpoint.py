@@ -16,6 +16,13 @@ accumulator), the ``skip_nonfinite`` guard's counters, and the EMA weights.
 It is read back with ``torch.load(weights_only=True)``.  Every save is
 staged next to the old state and committed by one rename, so
 ``find_latest_checkpoint`` never sees a partial save.
+
+Under FSDP or tensor parallelism (``state.parallel``) every tensor is saved
+whole, in the same layout as one process saves it: every rank enters the
+gather (a collective), then process 0 alone writes the payload and
+``meta.json``.  A restore reads the whole tensors and keeps this rank's
+pieces, so a checkpoint written under one mesh loads under any other and
+in one process.
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ from typing import Any
 
 import torch
 
+from maestro_tpu_torch.parallel.mesh import local, resharded
+
 PAYLOAD = "payload.pt"
 
 
@@ -39,17 +48,23 @@ PAYLOAD = "payload.pt"
 # --------------------------------------------------------------------------
 def _payload(state) -> dict[str, Any]:
     """The state's tensors and counters as nested dicts (tensors are the live
-    ones: copy before the next step changes them)."""
-    model, tx = state.model, state.tx
-    named = list(model.named_parameters())
+    ones: copy before the next step changes them).  With ``state.parallel``
+    each tensor is gathered whole: a collective, entered by every rank."""
+    model, tx, par = state.model, state.tx, state.parallel
+    named = list(resharded(model).named_parameters())
+
+    def whole(name: str, t: torch.Tensor) -> torch.Tensor:
+        return t if par is None or t.ndim == 0 else par.full_tensor(name, t)
+
     payload: dict[str, Any] = {
-        "params": {name: p.detach() for name, p in named},
+        "params": {name: whole(name, p.detach()) for name, p in named},
         "step": int(state.step),
     }
     if tx is not None:
         name_of = {id(p): name for name, p in named}
         moments = {
-            name_of[id(p)]: {k: v for k, v in st.items() if torch.is_tensor(v)}
+            name_of[id(p)]: {k: whole(name_of[id(p)], v) for k, v in st.items()
+                             if torch.is_tensor(v)}
             for p, st in tx.adamw.state.items()
         }
         trained = [name_of[id(p)] for p in tx._params()]
@@ -57,13 +72,24 @@ def _payload(state) -> dict[str, Any]:
             "moments": moments,
             "n_updates": int(tx.n_updates),
             "mini_step": int(tx.mini_step),
-            "acc": None if tx._acc is None else dict(zip(trained, tx._acc)),
+            "acc": None if tx._acc is None else {
+                n: whole(n, a) for n, a in zip(trained, tx._acc)},
             "guard": None if tx.guard is None else {
                 f.name: getattr(tx.guard, f.name) for f in fields(tx.guard)},
         }
     if state.ema is not None:
-        payload["ema_params"] = dict(state.ema)
+        payload["ema_params"] = {n: whole(n, t) for n, t in state.ema.items()}
     return payload
+
+
+def _writes(state) -> bool:
+    """Whether this process writes the checkpoint (process 0 of a parallel
+    run; any process of an unparallel one)."""
+    if state.parallel is None:
+        return True
+    from maestro_tpu_torch.parallel.distributed import is_primary
+
+    return is_primary()
 
 
 def _map_tensors(tree, fn, key=()):
@@ -111,6 +137,8 @@ def save_checkpoint(
     """Write a checkpoint synchronously (the loop waits for the disk)."""
     path = Path(ckpt_dir).absolute() / f"{phase}-epoch={epoch}"
     payload = _map_tensors(_payload(state), lambda _, t: t.detach().to("cpu", copy=True))
+    if not _writes(state):
+        return path
     _write(path, payload)
     _write_meta(path, extra)
     return path
@@ -185,6 +213,9 @@ class AsyncSaver:
         self._join()  # the previous write still reads the pinned buffers
         self.waited_s.append(time.perf_counter() - t0)
         live = _payload(state)
+        if not _writes(state):
+            self.blocked_s.append(time.perf_counter() - t0)
+            return path
         event = None
         device = next((p.device for p in state.model.parameters()), torch.device("cpu"))
         if device.type == "cuda":
@@ -294,32 +325,50 @@ def restore_state(path: str | Path, state):
     Strict: a parameter the checkpoint lacks, or one of another shape,
     raises."""
     saved = _load(path)
-    params = dict(state.model.named_parameters())
+    params = dict(resharded(state.model).named_parameters())
+    par = state.parallel
+
+    def piece(name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of a whole saved tensor, on its parameter's device."""
+        t = t if par is None or t.ndim == 0 else par.local_piece(name, t)
+        return t.to(params[name].device, copy=True)
+
+    def like(name: str, t: torch.Tensor) -> torch.Tensor:
+        """``piece`` in the form the optimizer keeps: FSDP's AdamW holds
+        DTensors, the guarded update this rank's pieces."""
+        t = piece(name, t)
+        p = params[name]
+        if t.ndim == 0 or not hasattr(p, "device_mesh") or tx.skip_nonfinite:
+            return t
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, p.device_mesh, p.placements, shape=p.shape,
+                                  stride=p.stride())
+
     missing = sorted(set(params) - set(saved["params"]))
     wrong = [n for n, p in params.items()
-             if n in saved["params"] and saved["params"][n].shape != p.shape]
+             if n in saved["params"] and piece(n, saved["params"][n]).shape != local(p).shape]
     if missing or wrong:
         msg = (f"restore_state: {path} does not match the model (missing {missing[:5]}, "
                f"shape mismatches {wrong[:5]})")
         raise KeyError(msg)
     for name, p in params.items():
-        p.copy_(saved["params"][name])
+        local(p).copy_(piece(name, saved["params"][name]))
     state.step = int(saved["step"])
     tx = state.tx
     if tx is not None:
         opt = saved["opt_state"]
         tx.adamw.state.clear()
         for name, moments in opt["moments"].items():
-            p = params[name]
-            tx.adamw.state[p] = {
+            tx.adamw.state[params[name]] = {
                 # AdamW's own step count stays where torch keeps it (the CPU)
-                k: v.clone() if k == "step" else v.to(p.device, copy=True)
+                k: v.clone() if k == "step" else like(name, v)
                 for k, v in moments.items()
             }
         tx.n_updates, tx.mini_step = int(opt["n_updates"]), int(opt["mini_step"])
         name_of = {id(p): n for n, p in params.items()}
         tx._acc = None if opt["acc"] is None else [
-            opt["acc"][name_of[id(p)]].to(p.device, copy=True) for p in tx._params()]
+            like(name_of[id(p)], opt["acc"][name_of[id(p)]]) for p in tx._params()]
         if opt["guard"] is None:
             tx.guard = None
         else:
@@ -329,8 +378,7 @@ def restore_state(path: str | Path, state):
             tx.guard = NonFiniteGuard(**{k: v.to(device, copy=True)
                                          for k, v in opt["guard"].items()})
     if state.ema is not None and "ema_params" in saved:
-        state.ema = {n: v.to(params[n].device, copy=True)
-                     for n, v in saved["ema_params"].items()}
+        state.ema = {n: piece(n, v) for n, v in saved["ema_params"].items()}
     return state
 
 

@@ -3,6 +3,8 @@
 Reference: maestro/train/logger.py (ImageLogger: N
 input/reconstruction/target triplets per epoch; MetricsLogger: confusion-matrix
 heatmaps + .npy dumps) and layers/overlay.py (segmentation overlays).
+In a multi-process run the runtime gathers the rows to process 0, which
+alone draws and writes (``parallel.distributed.is_primary``).
 """
 
 from __future__ import annotations

@@ -8,6 +8,11 @@ multi-band-group modalities.  ``prediction_losses`` are the probe / finetune
 losses (reference base.py:120-150): per-pixel cross-entropy for segmentation,
 binary cross-entropy for multilabel and cross-entropy for single-label
 classification, rows whose label is ``missing_val`` masked out.
+
+Every loss is a ratio of batch sums.  Under data parallelism a rank holds
+part of the batch, and the loss of the global batch is the sum over ranks of
+each rank's sum over the GLOBAL count: ``count_reduce`` (where given) turns a
+rank's count into the global one (``parallel.mesh.Parallel.count_reduce``).
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ def reconstruction_loss(
     pixels_rec: dict[str, torch.Tensor],
     mask_pixels: dict[str, torch.Tensor],
     loss_type: str = "l1_norm",
+    count_reduce: Callable | None = None,
 ) -> torch.Tensor:
     """Masked reconstruction loss, weighted per modality by D * grid^2."""
     loss_fn, norm_pix = loss_elem(loss_type)
@@ -84,7 +90,8 @@ def reconstruction_loss(
             target = patch_group_normalize(target, spec.patch_size, spec.norm_groups)
         err = loss_fn(target - pixels_rec[name].float())
         m = mask_pixels[name].float()
-        mod_loss = (err * m).sum() / (m.sum() + EPS_COUNT)
+        count = m.sum() if count_reduce is None else count_reduce(m.sum())
+        mod_loss = (err * m).sum() / (count + EPS_COUNT)
         weight = spec.num_dates * spec.tokens_per_date
         total = total + weight * mod_loss
         weights = weights + weight
@@ -92,11 +99,11 @@ def reconstruction_loss(
 
 
 def _masked_mean(per_row: torch.Tensor, valid: torch.Tensor,
-                 logits: torch.Tensor) -> torch.Tensor:
+                 logits: torch.Tensor, count_reduce: Callable | None = None) -> torch.Tensor:
     """Mean of ``per_row`` over the valid rows; ``0 * logits.mean()`` when no
     row is valid, so the gradient stays defined (reference base.py:147-148).
     No host sync: both branches are computed and selected on the device."""
-    count = valid.sum()
+    count = valid.sum() if count_reduce is None else count_reduce(valid.sum())
     mean = (per_row * valid).sum() / count.clamp(min=1)
     return torch.where(count > 0, mean, 0.0 * logits.mean())
 
@@ -105,6 +112,7 @@ def prediction_losses(
     head_specs,
     batch: dict[str, torch.Tensor],
     logits: dict[str, torch.Tensor],
+    count_reduce: Callable | None = None,
 ) -> tuple[torch.Tensor, dict[str, dict[str, torch.Tensor]]]:
     """Sum of the per-target losses, and per target what the metrics read:
     ``preds`` (segment: argmax over the class axis), or ``logits``, with
@@ -122,21 +130,21 @@ def prediction_losses(
             picked = lgc.gather(1, y_safe[:, None])[:, 0]
             ce = (lse - picked).reshape(-1)
             valid = (y2 != hs.missing_val).reshape(-1)
-            loss = _masked_mean(ce, valid, lg)
+            loss = _masked_mean(ce, valid, lg, count_reduce)
             aux[hs.name] = {"preds": lgc.argmax(dim=1).reshape(-1),
                             "labels": y2.reshape(-1), "valid": valid}
         elif hs.type_target == "multilabel_classif":
             yf = y.float()
             valid = (y != hs.missing_val).all(dim=1)
             bce = lg.clamp(min=0) - lg * yf + torch.log1p(torch.exp(-lg.abs()))
-            loss = _masked_mean(bce.mean(dim=1), valid, lg)
+            loss = _masked_mean(bce.mean(dim=1), valid, lg, count_reduce)
             aux[hs.name] = {"logits": lg, "labels": y, "valid": valid}
         else:  # classif
             y1 = y.reshape(-1).long()
             valid = y1 != hs.missing_val
             y_safe = y1.clamp(0, hs.num_classes - 1)
             ce = -torch.log_softmax(lg, dim=-1).gather(1, y_safe[:, None])[:, 0]
-            loss = _masked_mean(ce, valid, lg)
+            loss = _masked_mean(ce, valid, lg, count_reduce)
             aux[hs.name] = {"logits": lg, "labels": y1, "valid": valid}
         total = total + loss
     return total, aux

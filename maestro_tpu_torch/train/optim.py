@@ -33,9 +33,11 @@ import re
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from maestro_tpu_torch.conf.core import OptConfig, OptFinetuneConfig
+from maestro_tpu_torch.parallel.mesh import local
 
 _DECODER_PREFIXES = ("decoders.", "enc_to_dec.", "pixelify.", "mask_tokens.")
 
@@ -108,8 +110,18 @@ def onecycle_schedule(
                             up, max(total_steps - up, 1))
 
 
+_WRAPPER_PREFIX = "module."  # what DDP puts before every parameter name
+
+
+def unwrapped_name(name: str) -> str:
+    """A parameter's name in the model itself, whatever wraps it (a DDP
+    wrapper's ``module.`` prefix dropped)."""
+    return name.removeprefix(_WRAPPER_PREFIX)
+
+
 def param_role(name: str) -> str:
     """'head', 'decoder' (reconstruction-only parameters) or 'backbone'."""
+    name = unwrapped_name(name)
     if name.startswith("heads."):
         return "head"
     if name.startswith(_DECODER_PREFIXES):
@@ -145,7 +157,7 @@ def lw_decay_multiplier(name: str, rate: float) -> float:
     any ``Transformer`` (stream encoders and trunk alike: the name's first
     ``block<i>`` component decides) gets ``rate ** (LW_DECAY_DEPTH - i)``,
     patch embeds ``rate ** (LW_DECAY_DEPTH + 1)``, everything else 1."""
-    parts = name.split(".")
+    parts = unwrapped_name(name).split(".")
     for part in parts:
         match = _BLOCK_RE.fullmatch(part)
         if match:
@@ -243,17 +255,25 @@ class ScheduledAdamW:
 
     @torch.no_grad()
     def _guarded_step(self) -> torch.Tensor:
-        params = self._params()
+        # this rank's pieces of the parameters and gradients (FSDP's local
+        # shards); the update is elementwise, so it runs on them as they are
+        all_params = self._params()
+        params = [local(p) for p in all_params]
         device = params[0].device
         if self.guard is None:
             self.guard = NonFiniteGuard.create(device)
         guard = self.guard
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad.detach() for p in params]
+        grads = [torch.zeros_like(p) if q.grad is None else local(q.grad).detach()
+                 for p, q in zip(params, all_params)]
         found = torch.zeros(1, dtype=torch.float32, device=device)
         # one multi-tensor pass sets `found` where any element is inf or NaN
         # (the scale of 1 leaves the gradients as they are)
         torch._amp_foreach_non_finite_check_and_unscale_(
             grads, found, torch.ones((), dtype=torch.float32, device=device))
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            # a rank sees only its pieces of the gradients: every rank skips
+            # or applies the same step (queued on the device, no host sync)
+            dist.all_reduce(found, op=dist.ReduceOp.MAX)
         finite = found[0] == 0
         guard.notfinite_count = torch.where(finite, 0, guard.notfinite_count + 1)
         guard.total_notfinite = torch.where(finite, guard.total_notfinite,
@@ -292,11 +312,12 @@ class ScheduledAdamW:
         t = guard.bias_step.clamp(min=1.0)  # a dropped first step divides by nothing
         i = 0
         for group in opt.param_groups:
-            ps = group["params"]
-            gs = grads[i : i + len(ps)]
-            i += len(ps)
+            keys = group["params"]
+            ps = params[i : i + len(keys)]
+            gs = grads[i : i + len(keys)]
+            i += len(keys)
             b1, b2 = group["betas"]
-            states = [opt.state[p] for p in ps]
+            states = [opt.state[p] for p in keys]
             for st, p in zip(states, ps):
                 if "exp_avg" not in st:
                     st["exp_avg"] = torch.zeros_like(p)

@@ -18,34 +18,46 @@ import threading
 log = logging.getLogger("maestro_tpu_torch")
 
 _stop = threading.Event()
-_installed = False
 
 
-def install_handlers() -> None:
-    """Idempotently route SIGTERM/SIGINT to a stop request.
+def _request_stop(signum, frame):  # noqa: ANN001, ARG001
+    if _stop.is_set():  # second signal: give up gracefulness
+        raise KeyboardInterrupt
+    log.warning(
+        "received %s: finishing the current step, checkpointing, and "
+        "exiting (resume with run.fit_name/fit_phase)",
+        signal.Signals(signum).name,
+    )
+    _stop.set()
 
-    Only valid from the main thread (Python restricts ``signal.signal``);
-    callers on worker threads get the no-op fallback of never stopping early.
+
+def install_handlers():
+    """Route SIGTERM/SIGINT to a stop request; returns the handlers it
+    replaced, for ``restore_handlers`` (None when it changed nothing).
+
+    Idempotent, and installed again when other code in the process has taken
+    the signals since (a handler it replaced would otherwise get this run's
+    stop signal).  Only valid from the main thread (Python restricts
+    ``signal.signal``); callers on worker threads get the no-op fallback of
+    never stopping early.
     """
-    global _installed  # noqa: PLW0603
-    if _installed:
-        return
     if threading.current_thread() is not threading.main_thread():
-        return
-
-    def _request_stop(signum, frame):  # noqa: ANN001, ARG001
-        if _stop.is_set():  # second signal: give up gracefulness
-            raise KeyboardInterrupt
-        log.warning(
-            "received %s: finishing the current step, checkpointing, and "
-            "exiting (resume with run.fit_name/fit_phase)",
-            signal.Signals(signum).name,
-        )
-        _stop.set()
-
+        return None
+    if signal.getsignal(signal.SIGTERM) is _request_stop:
+        return None
+    previous = (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT))
     signal.signal(signal.SIGTERM, _request_stop)
     signal.signal(signal.SIGINT, _request_stop)
-    _installed = True
+    return previous
+
+
+def restore_handlers(previous) -> None:
+    """Put back the handlers ``install_handlers`` replaced (a run leaves
+    none of its own behind)."""
+    if previous is None:
+        return
+    for sig, handler in zip((signal.SIGTERM, signal.SIGINT), previous):
+        signal.signal(sig, signal.SIG_DFL if handler is None else handler)
 
 
 def stop_requested() -> bool:

@@ -17,8 +17,16 @@ until a phase trains them.  A warm start (``run.load_*``, or a baseline's
 by name and shape, the parameters of the first phase that runs
 (``phase_params``), as the JAX package's first ``init_params`` does.
 
-Everything runs on one device, passed as ``device=`` (default ``"cuda"``);
-the knobs the port does not run raise ``NotImplementedError``
+Each process drives one device, passed as ``device=`` (default
+``"cuda"``).  A multi-process run (``torchrun``; ``parallel.distributed``)
+lays the JAX package's mesh over its processes (``trainer.mesh_data``,
+``mesh_model``, ``mesh_replica``; ``trainer.fsdp``): each data-parallel rank
+loads its shard of every batch (``opt.batch_size`` is per shard, as in the
+JAX package), the model is placed on the mesh once its warm start is in
+(``parallel.mesh.Parallel``) and wrapped for each phase, the losses and
+metric states are those of the global batch, and process 0 alone writes
+TensorBoard, ``metrics.jsonl``, images, confusion matrices and checkpoints.
+The knobs the port does not run raise ``NotImplementedError``
 (``check_supported``).  The train loop keeps a host-side step counter and
 reads a device value back only every ``trainer.log_every_steps`` steps and
 once at the end of an epoch.
@@ -27,7 +35,6 @@ once at the end of an epoch.
 from __future__ import annotations
 
 import logging
-import os
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -39,9 +46,14 @@ import torch
 from maestro_tpu_torch.conf.core import ExperimentConfig, OptConfig
 from maestro_tpu_torch.conf.datasets import DatasetsConfig
 from maestro_tpu_torch.models.mae import resolve_device
+from maestro_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    is_primary,
+    process_count,
+)
 from maestro_tpu_torch.train import checkpoint as ckpt
 from maestro_tpu_torch.train import preempt
-from maestro_tpu_torch.train.optim import make_optimizer, param_role
+from maestro_tpu_torch.train.optim import make_optimizer, param_role, trainable_roles
 from maestro_tpu_torch.train.state import TrainState, ema_momentum, ema_update
 from maestro_tpu_torch.train.steps import (
     compute_metrics,
@@ -70,34 +82,10 @@ def check_supported(cfg: ExperimentConfig) -> None:
     """Refuse, by name and ROADMAP.md item, the options the port does not run
     yet (none is ignored quietly)."""
     t = cfg.trainer
-    refusals = []
     if t.steps_per_dispatch > 1:
-        refusals.append(f"trainer.steps_per_dispatch={t.steps_per_dispatch} (several steps a "
-                        "dispatch: CUDA graphs, ROADMAP.md queue 1 item 7)")
-    for name in ("mesh_data", "mesh_model"):
-        if getattr(t, name) not in (1, -1):
-            refusals.append(f"trainer.{name}={getattr(t, name)} (the port runs one device; "
-                            "parallelism is ROADMAP.md queue 1 item 4)")
-    if t.mesh_replica > 1:
-        refusals.append(f"trainer.mesh_replica={t.mesh_replica} (ROADMAP.md queue 1 item 4)")
-    if t.fsdp:
-        refusals.append("trainer.fsdp=true (FSDP: ROADMAP.md queue 1 item 4)")
-    if _process_count() > 1:
-        refusals.append(f"{_process_count()} processes (data-parallel training: ROADMAP.md "
-                        "queue 1 item 4)")
-    if refusals:
-        msg = "not ported yet: " + "; ".join(refusals)
+        msg = (f"not ported yet: trainer.steps_per_dispatch={t.steps_per_dispatch} (several "
+               "steps a dispatch: CUDA graphs, ROADMAP.md queue 1 item 7)")
         raise NotImplementedError(msg)
-
-
-def _process_count() -> int:
-    """Processes in the run: the default process group's size, else the
-    launcher's ``WORLD_SIZE``."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def _check_resume_loader(meta: dict, data_cfg) -> None:
@@ -190,6 +178,20 @@ class Experiment:
         self.device = resolve_device(device)
         check_supported(cfg)
         self.cfg = cfg
+        # the mesh over the processes (none for one process without a group:
+        # the JAX package's mesh of one device, where fsdp shards nothing)
+        import torch.distributed as dist
+
+        from maestro_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+
+        t = cfg.trainer
+        initialize_distributed(self.device)
+        if dist.is_initialized():
+            self.mesh = make_mesh(t.mesh_data, t.mesh_model, t.mesh_replica, self.device.type)
+        else:
+            mesh_shape(1, t.mesh_data, t.mesh_model, t.mesh_replica)
+            self.mesh = None
+        self.parallel = None  # the model on the mesh, after its warm start
         self.datasets = datasets
         self.workdir = Path(workdir)
         self.workdir.mkdir(parents=True, exist_ok=True)
@@ -214,6 +216,8 @@ class Experiment:
 
     # ------------------------------------------------------------------
     def _save_ckpt(self, phase: str, epoch: int, state, extra: dict):
+        if self.parallel is not None:  # meta.json records the placement it was saved from
+            extra = {**extra, "parallel": self.parallel.describe()}
         if self.cfg.trainer.async_checkpoint:
             if self._saver is None:
                 self._saver = ckpt.AsyncSaver()
@@ -225,9 +229,37 @@ class Experiment:
         )
 
     def _ckpt_barrier(self) -> None:
-        """Join in-flight async saves (before restore / phase handoff)."""
+        """Join in-flight async saves (before restore / phase handoff); in a
+        parallel run every rank then waits for process 0's write."""
         if self._saver is not None:
             self._saver.wait()
+        if self.parallel is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
+
+    def batch_shard(self) -> tuple[int, int]:
+        """(index, count) of this process's shard of every batch: its rank
+        over the mesh's batch axes (tensor-parallel peers read the same
+        rows)."""
+        if self.mesh is None or self.cfg.run.eval_only:
+            return 0, 1
+        from maestro_tpu_torch.parallel.mesh import batch_shard_index, num_batch_shards
+
+        return batch_shard_index(self.mesh), num_batch_shards(self.mesh)
+
+    def _place(self, roles) -> Any:
+        """The model on the mesh (placed once, after the warm start), wrapped
+        for a phase that trains ``roles``; None in an unparallel run."""
+        if self.mesh is None:
+            return None
+        if self.parallel is None:
+            from maestro_tpu_torch.parallel.mesh import Parallel
+
+            self.parallel = Parallel(self.model, self.mesh, fsdp=self.cfg.trainer.fsdp)
+            log.info("placed on the mesh: %s", self.parallel.describe())
+        self.parallel.for_phase(roles)
+        return self.parallel
 
     def close(self, *, trackers: bool = True) -> None:
         """Release the async checkpointer thread and the TB writer;
@@ -253,11 +285,12 @@ class Experiment:
     # ------------------------------------------------------------------
     @property
     def writer(self):
-        """TensorBoard writer."""
+        """TensorBoard writer; a no-op sink on processes other than 0."""
         if self._writer is None:
-            from maestro_tpu_torch.utils.tb import SummaryWriter
+            from maestro_tpu_torch.utils.tb import NullWriter, SummaryWriter
 
-            self._writer = SummaryWriter(str(self.workdir / "tb"))
+            self._writer = (SummaryWriter(str(self.workdir / "tb")) if is_primary()
+                            else NullWriter())
         return self._writer
 
     def _log_scalar(self, tag: str, value: float, step: int) -> None:
@@ -265,7 +298,9 @@ class Experiment:
 
     def _append_jsonl(self, record: dict) -> None:
         """Experiment tracking sink: metrics.jsonl always, plus an optional
-        external tracker (run.tracker / $MAESTRO_TRACKER)."""
+        external tracker (run.tracker / $MAESTRO_TRACKER); process 0 only."""
+        if not is_primary():
+            return
         from maestro_tpu_torch.train.tracking import JsonlTracker, build_trackers
 
         if self._trackers is None:
@@ -296,36 +331,54 @@ class Experiment:
     def _log_images(self, phase, epoch, state, np_batch) -> None:
         """Per-epoch image logging (reference train/logger.py ImageLogger):
         up to ``run.logged_images_per_epoch`` samples of one fixed val batch
-        (fetched once per phase by fit_phase)."""
+        (fetched once per phase by fit_phase).  In a parallel run every rank
+        enters the forward (a collective under FSDP or tensor parallelism),
+        the data-parallel ranks' rows are gathered, and process 0 draws."""
         from maestro_tpu_torch.train.logging import EpochImageLogger
 
-        n_samples = min(
-            self.cfg.run.logged_images_per_epoch,
-            np_batch[self.datasets.dataset.log_inputs[0]].shape[0],
-        )
+        par = self.parallel
         batch = self._device_batch(np_batch)
-        logger = EpochImageLogger(
-            self.writer, self.datasets.dataset.log_inputs,
-            self.cfg.run.logged_images_per_epoch,
-        )
         self.model.eval()
 
+        limit = self.cfg.run.logged_images_per_epoch
+
         def host(tree):  # the first samples, floats as float32 (masks stay bool)
-            return {k: (v[:n_samples] if v.dtype == torch.bool else v[:n_samples].float())
+            return {k: (v[:limit] if v.dtype == torch.bool else v[:limit].float())
                     .cpu().numpy() for k, v in tree.items()}
+
+        def global_rows(*trees):  # the data-parallel ranks' rows, in rank order
+            if par is None:
+                return trees
+            parts = par.gather_objects(trees)
+            return tuple({k: np.concatenate([p[i][k] for p in parts]) for k in trees[i]}
+                         for i in range(len(trees)))
+
+        def image_logger():
+            return EpochImageLogger(self.writer, self.datasets.dataset.log_inputs,
+                                    self.cfg.run.logged_images_per_epoch)
 
         if phase == "pretrain":
             from maestro_tpu_torch.train.steps import mask_generator
 
+            rows = {} if par is None else {"mask_rows": par.rows(len(batch["ref_date"]))}
             pixels, masks, targets = self.model(
-                batch, "pretrain", generator=mask_generator(self.cfg.run.seed + 1, 0))
-            pixels, masks, targets = host(pixels), host(masks), host(targets)
+                batch, "pretrain", generator=mask_generator(self.cfg.run.seed + 1, 0), **rows)
+            pixels, masks, targets = global_rows(host(pixels), host(masks), host(targets))
+            if not is_primary():
+                return
+            n_samples = min(limit, len(next(iter(pixels.values()))))
+            logger = image_logger()
             for i in range(n_samples):
                 logger.log_reconstruction(
                     phase, "val", epoch, targets, pixels, masks, sample=i,
                 )
             return
-        logits = host(self.model(batch, phase))
+        logits, np_batch = global_rows(host(self.model(batch, phase)),
+                                       {k: v[:limit] for k, v in np_batch.items()})
+        if not is_primary():
+            return
+        n_samples = min(limit, len(np_batch[self.datasets.dataset.log_inputs[0]]))
+        logger = image_logger()
         for hs in self.model.head_specs:
             if hs.type_target != "segment":
                 continue
@@ -343,7 +396,7 @@ class Experiment:
             dump_confusion_matrix,
         )
 
-        if metric_states is None:
+        if metric_states is None or not is_primary():
             return
         for hs in self.model.head_specs:
             cm = metric_states[hs.name]["cm"].cpu().numpy()  # C x C, or K x 2 x 2
@@ -436,9 +489,13 @@ class Experiment:
             "probe" if (self.is_baseline and cfg.model.freeze and phase != "pretrain")
             else phase
         )
-        tx = make_optimizer(opt, freeze_phase, total_steps, self.model,
+        # the phase's frozen roles stop requiring gradients before the model
+        # is wrapped for it (DDP refuses a parameter that gets no gradient)
+        par = self._place(trainable_roles(freeze_phase))
+        shards = 1 if par is None else par.dp_size
+        tx = make_optimizer(opt, freeze_phase, total_steps, self.model, shards,
                             skip_nonfinite=cfg.trainer.skip_nonfinite)
-        state = TrainState.create(self.model, tx, use_ema=cfg.model.use_ema)
+        state = TrainState.create(self.model, tx, use_ema=cfg.model.use_ema, parallel=par)
 
         start_epoch, resume_skip = 0, 0
         if resume_path:
@@ -459,12 +516,14 @@ class Experiment:
                      f", skipping {resume_skip} batches" if resume_skip else "")
 
         if phase == "pretrain":
-            train_step = make_pretrain_step(self.model, self.plan, tx, cfg.model.loss)
-            eval_step = make_pretrain_eval_step(self.model, self.plan, cfg.model.loss)
+            train_step = make_pretrain_step(self.model, self.plan, tx, cfg.model.loss,
+                                            parallel=par)
+            eval_step = make_pretrain_eval_step(self.model, self.plan, cfg.model.loss,
+                                                parallel=par)
         else:
-            train_step = make_supervised_step(self.model, phase, tx)
+            train_step = make_supervised_step(self.model, phase, tx, parallel=par)
             eval_step = make_supervised_eval_step(
-                self.model, phase, use_ema=(phase == "finetune"),
+                self.model, phase, use_ema=(phase == "finetune"), parallel=par,
             )
 
         # frozen-trunk phases (probe): _run_eval_epoch pins the val loader to
@@ -478,6 +537,7 @@ class Experiment:
             and cfg.trainer.probe_eval_cache
             and val_loader is not None
             and opt.epochs - start_epoch > 1  # a single eval never re-reads
+            and process_count() == 1  # the cache holds one process's batches
             and hasattr(self.model, "encode_for_heads")
         ):
             from maestro_tpu_torch.train.eval_cache import ProbeEvalCache, clamp_device_cap
@@ -700,13 +760,19 @@ class Experiment:
         out = {k: _host_mean([lg[k] for lg in losses]) for k in (losses[0] if losses else {})}
         if metric_states is not None:
             out.update(_flat_metrics(
-                compute_metrics(self.model.head_specs, metric_states),
+                compute_metrics(self.model.head_specs, self._summed(metric_states)),
             ))
         out["state"] = state
         # one loss entry per trained batch: the preemption checkpoint records
         # this so resume fast-forwards the loader past them
         out["batches_done"] = len(losses)
         return out
+
+    def _summed(self, metric_states):
+        """The metric states of the global batch: summed over the
+        data-parallel ranks (before ``compute_metrics``, and before the
+        confusion matrices are written)."""
+        return metric_states if self.parallel is None else self.parallel.sum_states(metric_states)
 
     def _run_eval_epoch(self, phase, state, eval_step, loader, seed, cache=None):
         """Returns (metrics dict, raw metric states or None).
@@ -761,6 +827,7 @@ class Experiment:
                 losses.append(logs["loss_pred"])
             if cache is not None:
                 cache.seal()
+        metric_states = self._summed(metric_states)
         out: dict[str, Any] = compute_metrics(self.model.head_specs, metric_states)
         out["loss_pred"] = _host_mean(losses) if losses else 0.0
         return out, metric_states
@@ -804,11 +871,19 @@ def run_experiment(
     device="cuda",
 ) -> dict[str, PhaseResult]:
     """Sequence pretrain -> probe -> finetune (reference run_experiment.py)
-    on ``device`` (a CUDA device unless the caller asks for another)."""
+    on ``device`` (a CUDA device unless the caller asks for another).  The
+    SIGTERM / SIGINT handlers are the run's while it lasts."""
+    resolve_device(device)
+    handlers = preempt.install_handlers()  # SIGTERM/SIGINT -> checkpoint + clean exit
+    try:
+        return _run_experiment(cfg, datasets, workdir, device)
+    finally:
+        preempt.restore_handlers(handlers)
+
+
+def _run_experiment(cfg, datasets, workdir, device) -> dict[str, PhaseResult]:
     from maestro_tpu_torch.data.loader import pin_loader
 
-    resolve_device(device)
-    preempt.install_handlers()  # SIGTERM/SIGINT -> checkpoint + clean exit
     resolve_run_handles(cfg.run)
     pin_loader(cfg.data)  # one loader per run, recorded in checkpoint meta
 
@@ -848,7 +923,10 @@ def _run_phases(cfg, datasets, exp, phase_opts, results) -> None:
             continue  # pretrain-only datasets (S2-NAIP)
         if phase == "pretrain" and exp.is_baseline:
             continue  # baseline adapters only probe/finetune
-        loaders = make_loaders(datasets, cfg.data, phase, opt.batch_size, seed=cfg.run.seed)
+        # opt.batch_size is per data-parallel shard; each process loads its shard
+        index, count = exp.batch_shard()
+        loaders = make_loaders(datasets, cfg.data, phase, opt.batch_size, seed=cfg.run.seed,
+                               shard_index=index, shard_count=count)
         resume = (
             cfg.run.fit_ckpt_path
             if cfg.run.fit_ckpt_path and cfg.run.fit_phase == phase

@@ -1,14 +1,22 @@
 """Train state: the step count, the model (which holds the parameters), the
 optimizer (which holds its moments) and the EMA weights of the supervised
-phases (reference train/base.py:263-274)."""
+phases (reference train/base.py:263-274).
+
+Under FSDP or tensor parallelism a rank holds pieces of the parameters; the
+EMA weights are copies of this rank's pieces and update in place, and
+``parallel`` (a ``parallel.mesh.Parallel``) joins the pieces for a
+checkpoint."""
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 from torch import nn
 
+from maestro_tpu_torch.parallel.mesh import local, resharded
 from maestro_tpu_torch.train.optim import ScheduledAdamW
 
 
@@ -21,15 +29,35 @@ class TrainState:
     model: nn.Module
     tx: ScheduledAdamW
     ema: dict[str, torch.Tensor] | None = None
+    parallel: Any = None
 
     @classmethod
-    def create(cls, model: nn.Module, tx: ScheduledAdamW, use_ema: bool = False) -> "TrainState":
-        return cls(step=0, model=model, tx=tx, ema=ema_params(model) if use_ema else None)
+    def create(cls, model: nn.Module, tx: ScheduledAdamW, use_ema: bool = False,
+               parallel=None) -> "TrainState":
+        return cls(step=0, model=model, tx=tx, ema=ema_params(model) if use_ema else None,
+                   parallel=parallel)
 
 
 def ema_params(model: nn.Module) -> dict[str, torch.Tensor]:
-    """fp32 copies (not aliases) of every parameter, by name."""
-    return {name: p.detach().clone() for name, p in model.named_parameters()}
+    """fp32 copies (not aliases) of every parameter (this rank's piece), by name."""
+    return {name: local(p).detach().clone()
+            for name, p in resharded(model).named_parameters()}
+
+
+@contextmanager
+def swapped_params(model: nn.Module, params: dict[str, torch.Tensor]):
+    """``params`` (this rank's pieces, by name) copied into the model's
+    parameters for the block, the trained values copied back after it."""
+    named = dict(resharded(model).named_parameters())
+    names = list(params)
+    live = [local(named[n]).detach() for n in names]
+    kept = [t.clone() for t in live]
+    torch._foreach_copy_(live, [params[n] for n in names])
+    try:
+        yield
+    finally:
+        resharded(model)  # drop a gathered copy of the swapped-in values
+        torch._foreach_copy_(live, kept)
 
 
 @torch.no_grad()
@@ -39,10 +67,10 @@ def ema_update(state: TrainState, momentum: float) -> TrainState:
     tensors; a state without EMA weights is returned as it is."""
     if state.ema is None:
         return state
-    params = dict(state.model.named_parameters())
+    params = dict(resharded(state.model).named_parameters())
     names = list(state.ema)
-    torch._foreach_lerp_([state.ema[n] for n in names], [params[n].detach() for n in names],
-                         1.0 - momentum)
+    torch._foreach_lerp_([state.ema[n] for n in names],
+                         [local(params[n]).detach() for n in names], 1.0 - momentum)
     return state
 
 

@@ -13,6 +13,15 @@ The supervised (probe / finetune) steps take the prediction losses and update
 the metric states on the device; finetune evaluation runs the EMA weights
 through ``torch.func.functional_call``, leaving the trained weights alone.
 No step reads a value back to the host: losses come back as device scalars.
+
+Under data parallelism (``parallel``: a ``parallel.mesh.Parallel``) a step
+takes this rank's rows of the global batch, calls ``parallel.module`` (the
+phase's DDP wrapper, or the FSDP / tensor-parallel model), and gives the
+gradients of the global batch, as the JAX package's jit over sharded arrays
+does: the pretrain masks are drawn for the global batch and the rank keeps
+its rows, each loss divides by the global batch's count and is scaled by the
+data-parallel size, which the gradient average divides back out.  The loss
+it returns is the global batch's.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from maestro_tpu_torch.specs.fusion import FusionPlan
 from maestro_tpu_torch.train import metrics as M
 from maestro_tpu_torch.train.losses import prediction_losses, reconstruction_loss
 from maestro_tpu_torch.train.optim import ScheduledAdamW
-from maestro_tpu_torch.train.state import TrainState
+from maestro_tpu_torch.train.state import TrainState, swapped_params
 
 
 def _check_state(state: TrainState, model, tx) -> None:
@@ -46,22 +55,41 @@ def mask_generator(seed: int, step: int) -> torch.Generator:
 
 
 def pretrain_loss_fn(model: MaestroMAE, plan: FusionPlan, loss_type: str,
-                     fused_loss: bool = True) -> Callable:
+                     fused_loss: bool = True, parallel=None, forward=None) -> Callable:
     """``loss_fn(batch, generator) -> loss`` for MAE pretraining.
 
     ``fused_loss=True`` reconstructs in token space (no pixel grid ever
     materialized) through the fused patch-group-norm loss; the plain path
-    keeps the reference's pixel-space formulation.
+    keeps the reference's pixel-space formulation.  With ``parallel`` the
+    batch is this rank's rows and the loss its part of the global batch's;
+    ``forward`` is the module called (default ``parallel.module``).
     """
+    if forward is None:
+        forward = model if parallel is None else parallel.module
+    reduce = None if parallel is None else parallel.count_reduce
 
     def loss_fn(batch: dict, generator: torch.Generator) -> torch.Tensor:
+        kw = {"generator": generator}
+        if parallel is not None:
+            kw["mask_rows"] = parallel.rows(next(iter(batch.values())).shape[0])
         if fused_loss:
-            rec, masks, targets = model(batch, "pretrain", False, generator=generator)
-            return fused_reconstruction_loss(plan, targets, rec, masks, loss_type)
-        pixels, masks, targets = model(batch, "pretrain", generator=generator)
-        return reconstruction_loss(plan, targets, pixels, masks, loss_type)
+            rec, masks, targets = forward(batch, "pretrain", False, **kw)
+            return fused_reconstruction_loss(plan, targets, rec, masks, loss_type,
+                                             count_reduce=reduce)
+        pixels, masks, targets = forward(batch, "pretrain", **kw)
+        return reconstruction_loss(plan, targets, pixels, masks, loss_type, reduce)
 
     return loss_fn
+
+
+def _backward(loss: torch.Tensor, parallel) -> torch.Tensor:
+    """``loss.backward()`` (scaled by the data-parallel size); returns the
+    global batch's loss, detached."""
+    if parallel is None:
+        loss.backward()
+        return loss.detach()
+    (loss * parallel.loss_scale).backward()
+    return parallel.global_loss(loss)
 
 
 def make_pretrain_step(
@@ -70,6 +98,7 @@ def make_pretrain_step(
     tx: ScheduledAdamW,
     loss_type: str = "l1_norm",
     fused_loss: bool = True,
+    parallel=None,
 ) -> Callable:
     """``step(state, batch, seed) -> (state, {"loss_rec": loss})``.
 
@@ -78,30 +107,31 @@ def make_pretrain_step(
     back as a device scalar: reading it is the caller's one host sync.
     """
     device = resolve_device(model.device)
-    loss_fn = pretrain_loss_fn(model, plan, loss_type, fused_loss)
+    loss_fn = pretrain_loss_fn(model, plan, loss_type, fused_loss, parallel)
 
     def step(state: TrainState, batch: dict, seed: int):
         _check_state(state, model, tx)
         model.train()
         loss = loss_fn(batch_to_device(model, batch, device), mask_generator(seed, state.step))
         tx.zero_grad()
-        loss.backward()
+        loss = _backward(loss, parallel)
         tx.step()
         state.step += 1
-        return state, {"loss_rec": loss.detach()}
+        return state, {"loss_rec": loss}
 
     return step
 
 
 def make_pretrain_eval_step(model: MaestroMAE, plan: FusionPlan,
-                            loss_type: str = "l1_norm") -> Callable:
+                            loss_type: str = "l1_norm", parallel=None) -> Callable:
     """``step(state, batch, seed, index=0) -> {"loss_rec": loss}``: the
     pretrain validation loss, no update.  Masks are drawn from
     ``mask_generator(seed, index)`` (the JAX runtime folds the batch index
     into its validation key); the loss is the pixel-space
     ``reconstruction_loss``, as the JAX package's eval step takes it."""
     device = resolve_device(model.device)
-    loss_fn = pretrain_loss_fn(model, plan, loss_type, fused_loss=False)
+    # an eval step calls the model itself, never a DDP wrapper
+    loss_fn = pretrain_loss_fn(model, plan, loss_type, False, parallel, forward=model)
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict, seed: int, index: int = 0):
@@ -110,7 +140,7 @@ def make_pretrain_eval_step(model: MaestroMAE, plan: FusionPlan,
             raise ValueError(msg)
         model.eval()
         loss = loss_fn(batch_to_device(model, batch, device), mask_generator(seed, index))
-        return {"loss_rec": loss}
+        return {"loss_rec": loss if parallel is None else parallel.global_loss(loss)}
 
     return step
 
@@ -128,7 +158,8 @@ def _update_metrics(head_specs, metric_states: dict, aux: dict) -> dict:
     return metric_states
 
 
-def make_supervised_step(model: MaestroMAE, phase: str, tx: ScheduledAdamW) -> Callable:
+def make_supervised_step(model: MaestroMAE, phase: str, tx: ScheduledAdamW,
+                         parallel=None) -> Callable:
     """``step(state, batch, metric_states) -> (state, metric_states,
     {"loss_pred": loss})`` for the probe or finetune phase.
 
@@ -139,17 +170,19 @@ def make_supervised_step(model: MaestroMAE, phase: str, tx: ScheduledAdamW) -> C
     _check_phase(phase)
     device = resolve_device(model.device)
     head_specs = model.head_specs
+    forward = model if parallel is None else parallel.module
+    reduce = None if parallel is None else parallel.count_reduce
 
     def step(state: TrainState, batch: dict, metric_states: dict):
         _check_state(state, model, tx)
         model.train()
         batch = batch_to_device(model, batch, device, targets=True)
-        loss, aux = prediction_losses(head_specs, batch, model(batch, phase))
+        loss, aux = prediction_losses(head_specs, batch, forward(batch, phase), reduce)
         tx.zero_grad()
-        loss.backward()
+        loss = _backward(loss, parallel)
         tx.step()
         state.step += 1
-        return state, _update_metrics(head_specs, metric_states, aux), {"loss_pred": loss.detach()}
+        return state, _update_metrics(head_specs, metric_states, aux), {"loss_pred": loss}
 
     return step
 
@@ -158,23 +191,40 @@ def _eval_params(state: TrainState, use_ema: bool) -> dict[str, torch.Tensor] | 
     return state.ema if use_ema and state.ema is not None else None
 
 
-def make_supervised_eval_step(model: MaestroMAE, phase: str, use_ema: bool = False) -> Callable:
+def _call(model, params, args, kwargs=None):
+    """``model(*args, **kwargs)`` with ``params`` (EMA weights by name, this
+    rank's pieces) standing in for the trained ones for this call only.
+    FSDP gathers the parameters it holds, so there the pieces are swapped in
+    and back; elsewhere ``functional_call`` leaves the parameters alone."""
+    kwargs = kwargs or {}
+    if params is None:
+        return model(*args, **kwargs)
+    if not hasattr(next(iter(model.parameters())), "to_local"):
+        return functional_call(model, params, args, kwargs)
+    with swapped_params(model, params):
+        return model(*args, **kwargs)
+
+
+def make_supervised_eval_step(model: MaestroMAE, phase: str, use_ema: bool = False,
+                              parallel=None) -> Callable:
     """``step(state, batch, metric_states) -> (metric_states, {"loss_pred"})``;
     with ``use_ema`` (finetune val/test) the EMA weights, when the state has
-    them, stand in for the trained ones for this call only."""
+    them, stand in for the trained ones for this call only.  With
+    ``parallel`` the loss is the global batch's and the metric states keep
+    this rank's counts (the caller sums them before ``compute_metrics``)."""
     _check_phase(phase)
     device = resolve_device(model.device)
     head_specs = model.head_specs
+    reduce = None if parallel is None else parallel.count_reduce
 
     @torch.no_grad()
     def step(state: TrainState, batch: dict, metric_states: dict):
         model.eval()
         batch = batch_to_device(model, batch, device, targets=True)
-        params = _eval_params(state, use_ema)
-        logits = model(batch, phase) if params is None else functional_call(
-            model, params, (batch, phase))
-        loss, aux = prediction_losses(head_specs, batch, logits)
-        return _update_metrics(head_specs, metric_states, aux), {"loss_pred": loss}
+        logits = _call(model, _eval_params(state, use_ema), (batch, phase))
+        loss, aux = prediction_losses(head_specs, batch, logits, reduce)
+        return (_update_metrics(head_specs, metric_states, aux),
+                {"loss_pred": loss if parallel is None else parallel.global_loss(loss)})
 
     return step
 
@@ -204,9 +254,8 @@ def make_head_eval_step(model: MaestroMAE, phase: str, use_ema: bool = False) ->
     def step(state: TrainState, encoded: dict, labels: dict, metric_states: dict):
         model.eval()
         labels = {hs.name: torch.as_tensor(labels[hs.name]).to(device) for hs in head_specs}
-        params = _eval_params(state, use_ema)
-        logits = model(encoded, phase, from_features=True) if params is None else \
-            functional_call(model, params, (encoded, phase), {"from_features": True})
+        logits = _call(model, _eval_params(state, use_ema), (encoded, phase),
+                       {"from_features": True})
         loss, aux = prediction_losses(head_specs, labels, logits)
         return _update_metrics(head_specs, metric_states, aux), {"loss_pred": loss}
 

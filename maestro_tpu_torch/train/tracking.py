@@ -12,9 +12,10 @@ plugged in without adding a repo dependency, via
   * env:    ``MAESTRO_TRACKER=my_pkg.my_mod:make_tracker``
 
 where ``make_tracker(workdir: Path, config: dict) -> Tracker`` returns any
-object implementing the ``Tracker`` protocol below.  The port runs one
-process, which constructs the trackers (the reference's rank-0 ClearML
-task).
+object implementing the ``Tracker`` protocol below.  In a multi-process
+run only process 0 constructs the trackers and writes records (the runtime
+gates on ``parallel.distributed.is_primary()``; the reference's rank-0
+ClearML task).
 """
 
 from __future__ import annotations

@@ -145,3 +145,16 @@ class SummaryWriter:
 
     def close(self) -> None:
         self._fh.close()
+
+
+class NullWriter:
+    """The sink of a process other than 0 in a multi-process run, where
+    process 0 alone writes the event file (the reference's rank-0 logger)."""
+
+    def add_scalar(self, *args, **kwargs) -> None: ...
+
+    def add_image(self, *args, **kwargs) -> None: ...
+
+    def flush(self) -> None: ...
+
+    def close(self) -> None: ...

@@ -152,7 +152,7 @@ def test_seg_head_chunk_recompute_keeps_the_gradients(monkeypatch, fused):
                for d, g in zip((1, 16, 4, 4), head.mod_grids))
     _, saved = _saved_bytes(lambda: head(xs), held=xs)
     monkeypatch.setattr(TH.ChunkedSegHead, "_chunk_recomputed",
-                        lambda self, row0, xs: self._chunk(row0, *xs))
+                        lambda self, row0, xs, w_kv, w16: self._chunk(row0, w_kv, w16, *xs))
     want_loss, want, _ = _grads(model, fn)
     np.testing.assert_allclose(got_loss, want_loss, rtol=1e-6)
     _assert_same_grads(got, want)

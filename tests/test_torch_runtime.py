@@ -326,6 +326,34 @@ def test_resume_after_sigterm_is_bit_identical(treesat_root, tmp_path):
             assert torch.equal(got["opt_state"]["moments"][n][k], v), (n, k)
 
 
+def test_preempt_handlers_come_back_and_are_restored():
+    """The port's SIGTERM/SIGINT handlers are installed again when other code
+    in the process has taken the signals since (a stop signal would reach
+    that code's handler), and ``restore_handlers`` puts back what they
+    replaced, as ``run_experiment`` does at its end."""
+    saved = (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT))
+
+    def other(signum, frame):  # another library's handler
+        del signum, frame
+
+    try:
+        signal.signal(signal.SIGTERM, other)
+        signal.signal(signal.SIGINT, other)
+        replaced = preempt.install_handlers()
+        assert replaced == (other, other)
+        assert signal.getsignal(signal.SIGTERM) is signal.getsignal(signal.SIGINT) \
+            is preempt._request_stop
+        assert preempt.install_handlers() is None  # already the port's
+        signal.signal(signal.SIGTERM, other)  # taken since
+        assert preempt.install_handlers() is not None
+        assert signal.getsignal(signal.SIGTERM) is preempt._request_stop
+        preempt.restore_handlers(replaced)
+        assert signal.getsignal(signal.SIGTERM) is signal.getsignal(signal.SIGINT) is other
+    finally:
+        for sig, handler in zip((signal.SIGTERM, signal.SIGINT), saved):
+            signal.signal(sig, signal.SIG_DFL if handler is None else handler)
+
+
 def test_resume_refuses_other_loader():
     """An interrupted checkpoint records its loader; resuming under another
     one fails loudly (the JAX package's test of the same name)."""
@@ -447,22 +475,38 @@ def test_parse_cli_matches_root_main(argv):
         tmain.parse_cli(["trainer.no_such_field=1"])
 
 
-@pytest.mark.parametrize(("override", "error"), [
-    ("trainer.steps_per_dispatch=2", NotImplementedError),
-    ("trainer.mesh_data=2", NotImplementedError),
-    ("trainer.mesh_model=2", NotImplementedError),
-    ("trainer.mesh_replica=2", NotImplementedError),
-    ("trainer.fsdp=true", NotImplementedError),
-    ("WORLD_SIZE=2", NotImplementedError),  # a launcher's second process
+@pytest.mark.parametrize(("override", "error", "match"), [
+    # the one knob left unported (CUDA graphs)
+    ("trainer.steps_per_dispatch=2", NotImplementedError, r"ROADMAP.md queue 1 item 7"),
+    # the mesh over one process: the JAX package's make_mesh errors
+    ("trainer.mesh_data=2", ValueError, r"needs 2 devices but only 1"),
+    ("trainer.mesh_model=2", ValueError, r"1 devices not divisible into 1 replicas x model axis 2"),
+    ("trainer.mesh_replica=2", ValueError, r"1 devices not divisible into 2 replicas"),
+    # FSDP over one process shards nothing (the JAX package's data axis of 1)
+    ("trainer.fsdp=true", None, None),
+    # a launcher's second process without a rendezvous
+    ("WORLD_SIZE=2", RuntimeError, r"WORLD_SIZE=2 but no rendezvous: MASTER_ADDR, MASTER_PORT"),
 ])
-def test_unported_knobs_raise(tmp_path, monkeypatch, override, error):
+def test_unported_knobs_raise(tmp_path, monkeypatch, override, error, match):
+    """Only ``trainer.steps_per_dispatch > 1`` is refused as not ported; the
+    parallelism knobs run, and refuse only what one process cannot hold."""
     argv = ["model.model_size=micro", "model.inter_depth=1"]
     if override.startswith("WORLD_SIZE="):
         monkeypatch.setenv("WORLD_SIZE", override.split("=")[1])
+        monkeypatch.delenv("MASTER_ADDR", raising=False)
+        monkeypatch.delenv("MASTER_PORT", raising=False)
     else:
         argv.append(override)
     cfg, datasets = tmain.parse_cli(argv)
-    with pytest.raises(error, match=r"ROADMAP.md queue 1 item [47]"):
+    if error is None:
+        exp = TR.Experiment(cfg, datasets, tmp_path, device="cpu")
+        assert exp.mesh is None and exp.batch_shard() == (0, 1)
+        tx_cfg = TC.OptPretrainConfig(epochs=1, batch_size=2)
+        batch = make_synthetic_batch(datasets.dataset, 2)
+        res = exp.fit_phase("pretrain", tx_cfg, [batch])
+        assert res.epochs_run == 1 and np.isfinite(res.history[0]["train/loss_rec"])
+        return
+    with pytest.raises(error, match=match):
         TR.Experiment(cfg, datasets, tmp_path, device="cpu")
 
 

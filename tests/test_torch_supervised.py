@@ -283,7 +283,8 @@ def test_ema_and_eval_steps_match_jax(monkeypatch):
     seen = []  # the logits the eval step computes
     losses_fn = TS.prediction_losses
     monkeypatch.setattr(TS, "prediction_losses",
-                        lambda specs, b, logits: seen.append(logits) or losses_fn(specs, b, logits))
+                        lambda specs, b, logits, *rest: seen.append(logits)
+                        or losses_fn(specs, b, logits, *rest))
     metrics, logs = TS.make_supervised_eval_step(model, "finetune", use_ema=True)(
         state, batch, TS.init_metric_states(model.head_specs, "cpu"))
     want_logits = jax.jit(lambda p, b: jmodel.apply(p, b, "finetune"))(new_j, jbatch)
