@@ -5,7 +5,7 @@
     python3 chip_smoke.py --loader-e2e [threads,grain,...]  # only the CLI at 20 batches a
                                      # pass under each loader named, each in its own process
     python3 chip_smoke.py --serve-only  # only the build and the serving path's checks
-                                     # and request latency
+                                     # and request latency, then the export phase
 
 Builds the hand-written CUDA kernels from ``maestro_tpu_torch/csrc`` (and
 reports the attention and pool kernels' registers, shared memory and spills
@@ -22,6 +22,19 @@ parameters):
 * serving — ``serve.make_predict_fn(model, "finetune")`` for requests of batch
   1, 4 and 8: launch counts, shapes, finiteness and agreement with the same
   model run through the plain versions;
+* serving artifacts and int8 serving (phase ``export``, also under
+  ``--serve-only``) — the finetune predict exported by
+  ``serve.export_predict`` with a symbolic batch (traced at batch 4), saved
+  and loaded, and the same for the model of ``quant.quantize_params``:
+  seconds and bytes; requests of batch 1, 4 and 8 through eager, the
+  artifact, int8 eager and the int8 artifact, each launching the attention
+  and pool kernels 39 and 16 times with no plain version, the artifacts
+  within the serving tolerance of their eager paths and the int8 logits at
+  cosine >= 0.995 against fp, every int8 product of int8 eager at batch 1
+  and 8 within its output's rounding (plus 1e-5 of its max |y|) of an fp64
+  recomputation; median
+  latency of each; ``_int_mm`` calls a request at batch 8 (profiler);
+  with ``--profile`` the host cost of the ops' dispatch;
 * pretraining — ``train.steps.make_pretrain_step`` (token-space l1_norm loss,
   AdamW with the closed-form OneCycle schedule): three steps at batch 8
   through the kernels and through the plain versions from the same weights
@@ -877,6 +890,263 @@ def serving_phase(model, batches, predict, attention, attn_pool, vit, want_profi
     finally:
         vit.mha_qkv, vit.attentive_pool = kernel_fns
     return launches
+
+
+EXPORT_SAMPLE_BATCH = 4  # the batch an artifact is traced at (its batch is symbolic)
+INT8_COS_MIN = 0.995  # int8 logits against fp by cosine (the JAX package's bf16 bar)
+# each value of each int8 product of a request against its fp64
+# recomputation: within the output's rounding (half a ulp: 2^-8 of |y| in
+# bf16) plus this share of the product's max |y| (the fp32 rescale)
+INT8_PRODUCT_ABS_TOL = 1e-5
+INT8_CHECK_BATCHES = (1, 8)  # 1: every product padded to 17 rows; 8: none of the trunk's
+EXPORT_RUNS = ("eager", "artifact", "int8_eager", "int8_artifact")
+LATENCY_ROUNDS = 5  # requests of each path and batch, in turns
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm() + 1e-12)).item()
+
+
+def request_profile(run_once, latency_ms: float) -> dict:
+    """One request under torch.profiler: device busy time and idle share
+    (against the request's latency with the profiler off), host-side aten
+    calls (nested ones included), ``aten::_int_mm`` calls, and the kernels
+    that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run_once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run_once()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = sorted(((e.key, e.self_device_time_total / 1e3) for e in events
+                     if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                    key=lambda r: -r[1])
+    busy = sum(ms for _, ms in device)
+    host = [e for e in events if e.device_type == DeviceType.CPU and e.key.startswith("aten::")]
+    return {"busy_ms": busy, "latency_ms": latency_ms,
+            "device_idle_share": 1.0 - busy / latency_ms if busy else None,
+            "host_aten_calls": sum(e.count for e in host),
+            "int_mm_calls": sum(e.count for e in host if e.key == "aten::_int_mm"),
+            "top": [[name[:60], ms] for name, ms in device[:6]]}
+
+
+@contextlib.contextmanager
+def int8_products_checked(quant, vit, report: dict):
+    """Every int8 product made inside (``quant.quant_linear``: the per-token
+    quantization, the zero rows padded under 17 rows, ``torch._int_mm`` and
+    the fp32 rescale) held against an fp64 recomputation on the same
+    operands, which multiplies with ``torch.matmul`` in fp64 and pads
+    nothing.  Each value must lie within half a ulp of the output dtype of
+    its fp64 value plus ``INT8_PRODUCT_ABS_TOL`` of the product's max |y|,
+    or it raises; ``report`` gains the number of products, the largest
+    error over that bound, the largest error over max |y|, and the shape of
+    the worst product."""
+    route = quant.quant_linear
+
+    def checked(x, w_q, s_w, bias, dtype):
+        y = route(x, w_q, s_w, bias, dtype)
+        xf = x.float()
+        s_x = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+        x_q = torch.clamp(torch.round(xf / s_x), -127, 127)
+        want = (x_q.double() @ w_q.double().t()) * s_x.double() * s_w.double()
+        if bias is not None:
+            want = want + bias.double()
+        scale = max(want.abs().max().item(), 1e-30)
+        diff = (y.double() - want).abs()
+        half_ulp = torch.finfo(y.dtype).eps / 2
+        over = (diff / (half_ulp * want.abs() + INT8_PRODUCT_ABS_TOL * scale)).max().item()
+        report["products"] += 1
+        report["max_err_of_max_abs"] = max(report["max_err_of_max_abs"],
+                                           diff.max().item() / scale)
+        if over > report["max_err_over_bound"]:
+            report["max_err_over_bound"] = over
+            report["worst_shape"] = [*x.shape[:-1], w_q.shape[0]]
+        if not over <= 1.0:
+            msg = (f"int8 product {list(x.shape)} x {list(w_q.shape)}: {over:.3f} times its "
+                   f"bound against fp64")
+            raise AssertionError(msg)
+        return y
+
+    quant.quant_linear = vit.quant_linear = checked
+    try:
+        yield
+    finally:
+        quant.quant_linear = vit.quant_linear = route
+
+
+def op_dispatch_us(attention, attn_pool, calls: int = 200) -> dict:
+    """Host microseconds a call, enqueue only (no synchronize in the loop),
+    of each forward through its registered op and through its launch
+    function directly, at small shapes of the serving path (the trunk's
+    heads at 50 rows; a pool of 64 positions over 4 dates): what the op's
+    dispatch adds to an eager call."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = qkv_views(1, 50, 6, 128, torch.bfloat16, gen)
+    x, sc, bi, w, qry = pool_inputs((1, 4, 64, 768), torch.bfloat16, gen)
+    w16 = w.to(torch.bfloat16)
+    pairs = {
+        "attention": (lambda: attention.flash_attention_fwd(q, k, v, 0.088, False),
+                      lambda: attention._fwd(q, k, v, 0.088, False)),
+        "pool": (lambda: attn_pool.attentive_pool_fwd(x, sc, bi, w16, qry, POOL_HEADS, 1e-5),
+                 lambda: attn_pool._fwd_kernel(x, sc, bi, w16, qry, POOL_HEADS, 1e-5)),
+    }
+    out = {}
+    for name, fns in pairs.items():
+        for label, fn in zip(("op", "direct"), fns):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            out[f"{name}_{label}"] = (time.perf_counter() - t0) * 1e6 / calls
+            torch.cuda.synchronize()
+    return out
+
+
+def export_phase(model, batches, attention, attn_pool, vit, want_profile: bool) -> dict:
+    """Serving artifacts and int8 serving on the card (``serve.export_predict``,
+    ``quant.quantize_params``): the finetune predict exported with a symbolic
+    batch, saved, loaded; the same for the int8 model; then requests of
+    batch 1, 4 and 8 through eager, the artifact, int8 eager and the int8
+    artifact (counts from 0): each launches the attention and pool kernels
+    as eager does, no plain version runs, the artifacts agree with their
+    eager paths within the serving check's tolerance and the int8 logits
+    with the fp ones by cosine; every int8 product of int8 eager's requests
+    of batch 1 and 8 agrees with its fp64 recomputation; then median latency
+    of each, and one request of each at batch 8 under the profiler (its
+    ``_int_mm`` calls).  ``want_profile`` adds the host cost of the ops'
+    dispatch."""
+    from maestro_tpu_torch import quant
+    from maestro_tpu_torch.quant import make_quant_predict_fn, quantize_params
+    from maestro_tpu_torch.serve import export_predict, load_exported, make_predict_fn, save_exported
+
+    work = Path(tempfile.mkdtemp(prefix="maestro_export_"))
+    t_phase = time.perf_counter()
+    try:
+        seconds = {}
+        qmodel = quantize_params(model)
+        params = {"": dict(model.named_parameters()), "int8_": dict(qmodel.named_parameters())}
+        runs = {"eager": make_predict_fn(model, "finetune"),
+                "int8_eager": make_quant_predict_fn(qmodel, "finetune")}
+        for prefix, m in (("", model), ("int8_", qmodel)):
+            t0 = time.perf_counter()
+            ep = export_predict(m, batches[EXPORT_SAMPLE_BATCH], "finetune")
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            path = save_exported(work / f"{prefix}predict.pt2", ep)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fn = load_exported(path, device="cuda")
+            load_s = time.perf_counter() - t0
+            nodes = [str(n.target) for n in fn.program.graph.nodes if n.op == "call_function"]
+            emit({"export": {
+                "model": "int8" if prefix else "fp", "symbolic_batch": True,
+                "sample_batch": EXPORT_SAMPLE_BATCH, "export_s": export_s, "save_s": save_s,
+                "load_s": load_s, "bytes": path.stat().st_size,
+                "param_input_bytes": sum(t.numel() * t.element_size()
+                                         for t in params[prefix].values()),
+                "graph_nodes": len(nodes),
+                "attention_op_nodes": nodes.count("maestro.flash_attention_fwd.default"),
+                "pool_op_nodes": nodes.count("maestro.attentive_pool_fwd.default"),
+                "int_mm_nodes": nodes.count("aten._int_mm.default"),
+                # export_predict drops the assert torch.export puts before each .to(dtype)
+                "to_dtype_nodes": nodes.count("aten.to.dtype"),
+                "assert_tensor_metadata_nodes":
+                    nodes.count("aten._assert_tensor_metadata.default")}})
+            runs[prefix + "artifact"] = (lambda batch, fn=fn, p=params[prefix]: fn(p, batch))
+            del ep
+        seconds["quantize_export_save_load"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+
+        plain_before = (attention.plain_count, attn_pool.plain_count)
+        attention.launch_count = 0
+        attn_pool.launch_count = 0
+        for b in REQUEST_BATCHES:
+            logits = {}
+            for name in EXPORT_RUNS:
+                before = (attention.launch_count, attn_pool.launch_count)
+                if name == "int8_eager" and b in INT8_CHECK_BATCHES:
+                    products = {"products": 0, "max_err_over_bound": 0.0,
+                                "max_err_of_max_abs": 0.0, "worst_shape": None}
+                    with int8_products_checked(quant, vit, products):
+                        logits[name] = runs[name](batches[b])["cosia"]
+                    if not products["products"]:
+                        raise AssertionError(f"batch {b}: int8 eager made no int8 product")
+                else:
+                    logits[name] = runs[name](batches[b])["cosia"]
+                torch.cuda.synchronize()
+                made = (attention.launch_count - before[0], attn_pool.launch_count - before[1])
+                if made != (ATTN_PER_REQUEST, POOL_PER_REQUEST):
+                    msg = (f"export {name} batch {b}: launches {made}, expected "
+                           f"{(ATTN_PER_REQUEST, POOL_PER_REQUEST)}")
+                    raise AssertionError(msg)
+                if (tuple(logits[name].shape) != (b, 1, 15, 512, 512)
+                        or not torch.isfinite(logits[name]).all()):
+                    raise AssertionError(f"export {name} batch {b}: bad logits")
+            row = {"batch": b, "rel_tolerance": LOGITS_REL_TOL, "int8_cos_min": INT8_COS_MIN}
+            if b in INT8_CHECK_BATCHES:
+                row["int8_products_vs_fp64"] = {**products, "abs_tol_of_max": INT8_PRODUCT_ABS_TOL}
+            for got, want in (("artifact", "eager"), ("int8_artifact", "int8_eager")):
+                ref = logits[want].float()
+                scale = ref.abs().max().item()
+                max_abs = (logits[got].float() - ref).abs().max().item()
+                row[f"{got}_max_abs_err"], row[f"{want}_max_abs_logit"] = max_abs, scale
+                if max_abs > LOGITS_REL_TOL * scale:
+                    raise AssertionError(f"batch {b}: {got} and {want} disagree ({max_abs=}, "
+                                         f"{scale=})")
+            for name in ("int8_eager", "int8_artifact"):
+                row[f"{name}_cos_vs_fp"] = cos = _cosine(logits[name], logits["eager"])
+                if cos < INT8_COS_MIN:
+                    raise AssertionError(f"batch {b}: {name} cosine {cos} against fp")
+            emit({"export_agreement": row})
+        launches = {"attention": attention.launch_count, "pool": attn_pool.launch_count}
+        if (attention.plain_count, attn_pool.plain_count) != plain_before:
+            raise AssertionError("a plain version ran on the export path")
+        seconds["requests"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        dispatch = op_dispatch_us(attention, attn_pool) if want_profile else None
+        # latency: the four paths in turns, request by request, so that the
+        # host's drift falls on all of them alike
+        latency = {}
+        for b in REQUEST_BATCHES:
+            for name in EXPORT_RUNS:
+                for _ in range(2):
+                    runs[name](batches[b])
+            torch.cuda.synchronize()
+            times = {name: [] for name in EXPORT_RUNS}
+            for _ in range(LATENCY_ROUNDS):
+                for name in EXPORT_RUNS:
+                    t_req = time.perf_counter()
+                    runs[name](batches[b])
+                    torch.cuda.synchronize()
+                    times[name].append((time.perf_counter() - t_req) * 1e3)
+            for name in EXPORT_RUNS:
+                latency.setdefault(name, {})[b] = statistics.median(times[name])
+        seconds["latency"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b, int_mm = REQUEST_BATCHES[-1], {}
+        for name in EXPORT_RUNS:
+            prof = request_profile(lambda name=name: runs[name](batches[b]), latency[name][b])
+            int_mm[name] = prof["int_mm_calls"]
+            emit({"export_profile": {"path": name, "batch": b, **prof}})
+        if (int_mm["int8_eager"] != int_mm["int8_artifact"] or not int_mm["int8_eager"]
+                or int_mm["eager"] or int_mm["artifact"]):
+            raise AssertionError(f"batch {b}: _int_mm calls a request {int_mm}")
+        seconds["profiles"] = time.perf_counter() - t0
+        emit({"export_requests": {
+            "launches_per_request": {"attention": ATTN_PER_REQUEST, "pool": POOL_PER_REQUEST},
+            "launches": launches, "plain_calls": 0, "int_mm_calls_per_request": int_mm,
+            "op_dispatch_us": dispatch, "seconds": seconds,
+            "latency_ms_median": latency, "phase_s": time.perf_counter() - t_phase}})
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def warm_start(model, path) -> None:
@@ -3144,6 +3414,7 @@ def main() -> None:
         batches = {b: make_synthetic_batch(datasets.dataset, b, seed=b) for b in REQUEST_BATCHES}
         serving_phase(model, batches, make_predict_fn(model, "finetune"), attention, attn_pool,
                       vit, want_profile)
+        export_phase(model, batches, attention, attn_pool, vit, want_profile)
         return
 
     # ---- 3. every kernel vs its plain version
@@ -3189,6 +3460,8 @@ def main() -> None:
     batches = {b: make_synthetic_batch(datasets.dataset, b, seed=b) for b in REQUEST_BATCHES}
     serve_launches = serving_phase(model, batches, predict, attention, attn_pool, vit,
                                    want_profile)
+    # ---- 4b. serving artifacts and int8 serving (serve.export_*, quant.py)
+    export_launches = export_phase(model, batches, attention, attn_pool, vit, want_profile)
     heads, dim_head = model.arch.heads, model.arch.dim_head
     dec_heads, dec_dim_head = model.arch.decoder_heads, model.arch.decoder_dim_head
     depth, inter_depth = model.arch.depth - model.inter_depth, model.inter_depth
@@ -3398,7 +3671,10 @@ def main() -> None:
     emit({"seconds_total": round(time.perf_counter() - t_start, 1)})
     tl = train["launches"]
     # the launches of the paths this slice added, by counter
-    extra = lambda key: {"pretrain_eval": pe.get(key, 0), "skip_nonfinite": sk.get(key, 0),  # noqa: E731
+    export_counts = {"attention_fwd": export_launches["attention"],
+                     "pool_fwd": export_launches["pool"]}
+    extra = lambda key: {"export": export_counts.get(key, 0),  # noqa: E731
+                         "pretrain_eval": pe.get(key, 0), "skip_nonfinite": sk.get(key, 0),
                          "finetune_remat_dots": rd.get(key, 0), "experiment": ex[key],
                          "baselines": bl["launches"].get(key, 0), "released": rel["launches"][key],
                          "baseline_cli": bc[key], "parallel": pl[key]}

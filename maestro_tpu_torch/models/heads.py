@@ -104,10 +104,12 @@ class ChunkedSegHead(nn.Module):
         for i, (x, g) in enumerate(zip(xs, self.mod_grids)):
             a_full = getattr(self, f"resize{i}").to(x.dtype)
             b, dg, _, e = x.shape
-            part = torch.einsum(
-                "rg,bdghe,sh->bdrse", a_full[row0 : row0 + rows],
-                x.reshape(b, dg, g, g, e), a_full,
-            )
+            # the chunk's rows first, then the columns: two-operand products
+            # in a fixed order (a three-operand einsum asks opt_einsum for an
+            # order, which fixes the batch size under torch.export)
+            part = torch.einsum("rg,bdghe->bdrhe", a_full[row0 : row0 + rows],
+                                x.reshape(b, dg, g, g, e))
+            part = torch.einsum("bdrhe,sh->bdrse", part, a_full)
             parts.append(part.reshape(b, dg, -1, e))
         return torch.cat(parts, dim=1)
 

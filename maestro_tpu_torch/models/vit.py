@@ -26,12 +26,18 @@ from torch.utils.checkpoint import (
 from maestro_tpu_torch.ops.attention import mha_qkv
 from maestro_tpu_torch.ops.attn_pool import attentive_pool
 from maestro_tpu_torch.parallel.mesh import copy_to_group, gather_pieces, reduce_from_group
+from maestro_tpu_torch.quant import quant_linear
 
 LN_EPS = 1e-5
 
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """``layer(x)`` with input, weight and bias cast to ``dtype``."""
+    """``layer(x)`` with input, weight and bias cast to ``dtype``; through
+    int8 (``quant.quant_linear``) where ``quant.quantize_params`` gave the
+    layer a ``weight_scale``."""
+    scale = getattr(layer, "weight_scale", None)
+    if scale is not None:
+        return quant_linear(x, layer.weight, scale, layer.bias, dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -39,9 +45,12 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor
 def row_dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, group) -> torch.Tensor:
     """``dense`` of a layer split by input feature over the tensor-parallel
     ``group``: the partial products are summed over the group before the
-    bias (``dense`` itself without a group)."""
+    bias (``dense`` itself without a group; an int8 layer takes no group)."""
     if group is None:
         return dense(x, layer, dtype)
+    if getattr(layer, "weight_scale", None) is not None:
+        msg = "int8 layers (quant.quantize_params) do not run under tensor parallelism"
+        raise NotImplementedError(msg)
     y = reduce_from_group(F.linear(x.to(dtype), layer.weight.to(dtype)), group)
     return y if layer.bias is None else y + layer.bias.to(dtype)
 

@@ -1,12 +1,16 @@
 """Multi-head attention on the head-packed ``[B, L, H, D]`` layout, with its
 gradient.
 
-For CUDA tensors ``mha_blhd`` / ``mha_qkv`` are ``torch.autograd.Function``s:
-the forward launches ``flash_attention_fwd`` (csrc/flash_attention.cu), which
-also writes each row's fp32 logsumexp when a gradient will be needed, and the
-backward launches ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu).  For
-CPU tensors both run ``mha_blhd_plain``, whose autograd is the backward's
-plain version.
+The forward is one registered op, ``torch.ops.maestro.flash_attention_fwd``
+(``flash_attention_fwd`` below): on CUDA tensors it launches the kernel of
+csrc/flash_attention.cu, which also writes each row's fp32 logsumexp when
+asked; on CPU tensors it runs ``mha_blhd_plain``; its fake version gives the
+shapes, so ``torch.export`` traces a model through it and the artifact calls
+the kernel.  ``mha_blhd`` / ``mha_qkv`` call the op directly where no
+gradient is needed.  With a gradient, CUDA tensors go through
+``torch.autograd.Function``s whose forward calls the op and whose backward
+launches ``flash_attention_bwd`` (csrc/flash_attention_bwd.cu); CPU tensors
+run ``mha_blhd_plain``, whose autograd is the backward's plain version.
 
 Replaces, in the JAX package's ``ops/attention.py``: the forward and backward
 passes of ``packed_single_block_attention`` (``_pk_fwd_kernel``,
@@ -244,6 +248,42 @@ def _fwd(q, k, v, sm_scale: float, with_lse: bool):
     return out, lse
 
 
+def _no_lse(q: torch.Tensor) -> torch.Tensor:
+    """The op's second output when no logsumexp was asked for."""
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@torch.library.custom_op("maestro::flash_attention_fwd", mutates_args=(), device_types="cpu")
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float, with_lse: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The attention forward as a registered op: ``(out [B, L, H, D]
+    contiguous, lse [B, H, L] fp32)``, lse empty unless ``with_lse``.  q, k, v
+    may be strided views (of one fused projection).  This body serves CPU
+    tensors, with the plain versions."""
+    out = mha_blhd_plain(q, k, v, sm_scale)
+    return out, logsumexp_plain(q, k, sm_scale) if with_lse else _no_lse(q)
+
+
+@flash_attention_fwd.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, sm_scale, with_lse):
+    out, lse = _fwd(q, k, v, sm_scale, with_lse)
+    return out, _no_lse(q) if lse is None else lse
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_fake(q, k, v, sm_scale, with_lse):
+    b, l, h, d = q.shape
+    lse = q.new_empty((b, h, l), dtype=torch.float32) if with_lse else _no_lse(q)
+    return q.new_empty((b, l, h, d)), lse
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether a call on ``tensors`` records a gradient (the ops then go
+    through their ``autograd.Function``, else straight to the forward op)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _bwd_args(q, k, v, out, lse, dout, delta, dq_scratch, dqkv, sm_scale: float) -> tuple:
     """The backward launch's arguments (no stream): every input read in
     place, raising for a view the kernels cannot take; gradients written into
@@ -295,8 +335,9 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
-        out, lse = _fwd(q, k, v, sm_scale, with_lse=any(ctx.needs_input_grad[:3]))
-        if lse is not None:
+        with_lse = any(ctx.needs_input_grad[:3])
+        out, lse = flash_attention_fwd(q, k, v, sm_scale, with_lse)
+        if with_lse:
             ctx.save_for_backward(q, k, v, out, lse)
         ctx.sm_scale = sm_scale
         return out
@@ -315,8 +356,8 @@ class _AttentionQKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, sm_scale):
         q, k, v = qkv.unbind(dim=2)
-        out, lse = _fwd(q, k, v, sm_scale, with_lse=ctx.needs_input_grad[0])
-        if lse is not None:
+        out, lse = flash_attention_fwd(q, k, v, sm_scale, ctx.needs_input_grad[0])
+        if ctx.needs_input_grad[0]:
             ctx.save_for_backward(qkv, out, lse)
         ctx.sm_scale = sm_scale
         return out
@@ -336,6 +377,8 @@ def mha_blhd(
 ) -> torch.Tensor:
     """Exact softmax attention; returns a contiguous ``[B, L, H, D]`` tensor."""
     _check(q, k, v)
+    if not needs_grad(q, k, v):
+        return flash_attention_fwd(q, k, v, float(sm_scale), False)[0]
     if q.device.type == "cpu":
         return mha_blhd_plain(q, k, v, sm_scale)
     return _Attention.apply(q, k, v, float(sm_scale))
@@ -349,6 +392,8 @@ def mha_qkv(qkv: torch.Tensor, sm_scale: float) -> torch.Tensor:
         raise ValueError(msg)
     q, k, v = qkv.unbind(dim=2)
     _check(q, k, v)
+    if not needs_grad(qkv):
+        return flash_attention_fwd(q, k, v, float(sm_scale), False)[0]
     if qkv.device.type == "cpu":
         return mha_blhd_plain(q, k, v, sm_scale)
     return _AttentionQKV.apply(qkv, float(sm_scale))

@@ -2,10 +2,14 @@
 forward and backward.
 
 ``attentive_pool`` is differentiable in ``x`` and in the four fp32 parameters
-(``ln_scale``, ``ln_bias``, ``w_kv``, ``query``): an autograd ``Function``
-that, for a CUDA tensor, launches ``attentive_pool_fwd`` (csrc/attn_pool.cu)
-forward and ``attentive_pool_bwd`` (csrc/attn_pool_bwd.cu) backward, and for a
-CPU tensor runs ``attentive_pool_plain`` / ``attentive_pool_bwd_plain``.
+(``ln_scale``, ``ln_bias``, ``w_kv``, ``query``).  Its forward is one
+registered op, ``torch.ops.maestro.attentive_pool_fwd`` (``attentive_pool_fwd``
+below): for a CUDA tensor it launches the kernels of csrc/attn_pool.cu, for a
+CPU tensor it runs ``attentive_pool_plain``, and its fake version gives the
+shapes to ``torch.export``.  Without a gradient the op is called directly;
+with one, an autograd ``Function`` calls it forward and runs
+``attentive_pool_bwd`` backward (csrc/attn_pool_bwd.cu for a CUDA tensor,
+``attentive_pool_bwd_plain`` for a CPU one).
 
 Replaces the JAX package's ``ops/attn_pool.py`` (``attentive_pool`` with its
 ``_fwd_kernel`` and ``_bwd_kernel``) and computes what its
@@ -48,6 +52,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from maestro_tpu_torch.ops.attention import needs_grad
 
 # 8 heads at E = 128, 384 (small), 768 (medium, base), 1024 (large)
 SUPPORTED_HEAD_DIMS = (16, 48, 96, 128)
@@ -209,7 +215,7 @@ def _check_params(x, ln_scale, ln_bias, w_kv, query, heads) -> None:
         msg = f"x must be [B, D, L, E], got {tuple(x.shape)}"
         raise ValueError(msg)
     b, d, l, e = x.shape
-    if min(b, d, l) < 1 or heads < 1 or e % heads:
+    if b < 1 or d < 1 or l < 1 or heads < 1 or e % heads:
         msg = f"bad pool shape {tuple(x.shape)} with {heads} heads"
         raise ValueError(msg)
     if x.dtype not in _DTYPE_CODE:
@@ -378,11 +384,35 @@ def attentive_pool_forward(x, ln_scale, ln_bias, w_kv, query, heads, eps=1e-5,
                      _bf16_weight(x, w_kv, w_kv_bf16))
 
 
+@torch.library.custom_op("maestro::attentive_pool_fwd", mutates_args=(), device_types="cpu")
+def attentive_pool_fwd(
+    x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor, w_kv: torch.Tensor,
+    query: torch.Tensor, heads: int, eps: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pool's forward as a registered op: ``(out [B, L, E], m [B, L, H],
+    den [B, L, H])``, contiguous, m and den fp32.  On the card ``w_kv`` may
+    be its bf16 copy (the kernels multiply in bf16 either way).  This body
+    serves CPU tensors, with the plain version."""
+    out, m, den = attentive_pool_plain(x, ln_scale, ln_bias, w_kv, query, heads, eps)
+    return out.contiguous(), m, den
+
+
+@attentive_pool_fwd.register_kernel("cuda")
+def _attentive_pool_fwd_cuda(x, ln_scale, ln_bias, w_kv, query, heads, eps):
+    return _fwd_kernel(x, ln_scale, ln_bias, w_kv, query, heads, eps)
+
+
+@attentive_pool_fwd.register_fake
+def _attentive_pool_fwd_fake(x, ln_scale, ln_bias, w_kv, query, heads, eps):
+    b, _, l, e = x.shape
+    stats = x.new_empty((b, l, heads), dtype=torch.float32)
+    return x.new_empty((b, l, e)), stats, torch.empty_like(stats)
+
+
 def _pool_fwd(x, ln_scale, ln_bias, w_kv, query, heads, eps, w16):
     with torch.no_grad():
-        if x.device.type == "cpu":
-            return attentive_pool_plain(x, ln_scale, ln_bias, w_kv, query, heads, eps)
-        return _fwd_kernel(x, ln_scale, ln_bias, w16, query, heads, eps)
+        return attentive_pool_fwd(x, ln_scale, ln_bias, w_kv if w16 is None else w16, query,
+                                  heads, eps)
 
 
 class _AttentivePool(torch.autograd.Function):
@@ -427,5 +457,8 @@ def attentive_pool(
     copy of it passes it as ``w_kv_bf16`` and saves a cast on every launch
     (the gradient still goes to ``w_kv``)."""
     _check_params(x, ln_scale, ln_bias, w_kv, query, heads)
-    return _AttentivePool.apply(x, ln_scale, ln_bias, w_kv, query, heads, eps,
-                                _bf16_weight(x, w_kv, w_kv_bf16))
+    w16 = _bf16_weight(x, w_kv, w_kv_bf16)
+    if needs_grad(x, ln_scale, ln_bias, w_kv, query):
+        return _AttentivePool.apply(x, ln_scale, ln_bias, w_kv, query, heads, eps, w16)
+    return attentive_pool_fwd(x, ln_scale, ln_bias, w_kv if w16 is None else w16, query,
+                              heads, eps)

@@ -58,7 +58,9 @@ def _resize_hw(x: torch.Tensor, size: int, mode: str) -> torch.Tensor:
     if mode in ("bicubic", "cubic"):
         a_r = bicubic_matrix(x.shape[-2], size, x.device)
         a_c = bicubic_matrix(x.shape[-1], size, x.device)
-        y = torch.einsum("rh,...hw,sw->...rs", a_r, x.float(), a_c)
+        # two products in a fixed order (a three-operand einsum asks
+        # opt_einsum for an order, which fixes the batch size under torch.export)
+        y = torch.matmul(torch.matmul(a_r, x.float()), a_c.T)
         return y.to(x.dtype)
     lead = x.shape[:-2]
     flat = x.reshape(1, -1, x.shape[-2], x.shape[-1])

@@ -34,7 +34,8 @@ import torch
 from torch import nn
 
 _CONTAINERS = (nn.ModuleDict, nn.ModuleList, nn.ParameterDict, nn.ParameterList)
-_FLAX_ATTRS = {"mask_tokens": "mask_token"}  # attribute names flax spells otherwise
+# attribute names flax spells otherwise (an int8 layer's scale: quant.py)
+_FLAX_ATTRS = {"mask_tokens": "mask_token", "weight_scale": "kernel_scale"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):

@@ -5,7 +5,7 @@ Usage::
     python -m maestro_tpu_torch.scripts.predict OUT_DIR \
         datasets.name_dataset=flair datasets.root_dir=/data \
         model.model_size=medium run.load_ckpt_path=runs/.../finetune-epoch=49 \
-        [--split=test] [--batch-size=32] [--probs] [--device=cuda]
+        [--split=test] [--batch-size=32] [--probs] [--device=cuda] [--quantize=int8]
 
 Writes, per target head, what the JAX package's ``scripts/predict.py`` writes:
 
@@ -19,8 +19,9 @@ and ``manifest.json`` (split, dataset, checkpoint, whether EMA weights were
 used, tiles per head, and the seconds the prediction loop took).  EMA
 weights are used when the checkpoint carries them (the finetune-eval
 semantics).  The model runs through ``serve.make_predict_fn`` on ``cuda``
-unless ``--device=cpu`` is given.  ``--quantize=int8`` (the JAX package's
-int8 serving) is not ported yet.
+unless ``--device=cpu`` is given.  ``--quantize=int8`` serves the model from
+``quant.quantize_params`` (w8a8: int8 transformer weights, activations
+quantized per token); the manifest records it.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ import torch
 def main(argv: list[str] | None = None) -> dict:
     argv = sys.argv[1:] if argv is None else argv
     out_dir, split, batch_size, want_probs, device = None, "test", 32, False, "cuda"
+    quantize = None
     overrides = []
     for arg in argv:
         if arg.startswith("--split="):
@@ -52,9 +54,6 @@ def main(argv: list[str] | None = None) -> dict:
             if quantize != "int8":
                 msg = f"--quantize supports int8, got {quantize!r}"
                 raise SystemExit(msg)
-            msg = ("--quantize=int8 is not ported yet (int8 serving, quant.py: "
-                   "ROADMAP.md queue 1 item 6)")
-            raise NotImplementedError(msg)
         elif "=" in arg:
             overrides.append(arg)
         elif out_dir is None:
@@ -97,7 +96,13 @@ def main(argv: list[str] | None = None) -> dict:
         )
         raise SystemExit(msg)
 
-    predict = make_predict_fn(model, "finetune")
+    if quantize == "int8":
+        from maestro_tpu_torch.quant import make_quant_predict_fn, quantize_params
+
+        model = quantize_params(model)
+        predict = make_quant_predict_fn(model, "finetune")
+    else:
+        predict = make_predict_fn(model, "finetune")
     head_specs = {hs.name: hs for hs in model.head_specs}
     for hs in head_specs.values():
         (out_dir / hs.name).mkdir(parents=True, exist_ok=True)
@@ -154,6 +159,7 @@ def main(argv: list[str] | None = None) -> dict:
         "split": split, "dataset": datasets.name_dataset,
         "checkpoint": cfg.run.load_ckpt_path,
         "ema": ema is not None,
+        "quantize": quantize,
         "tiles": {k: int(v) for k, v in counts.items()},
         "seconds": seconds,
     }

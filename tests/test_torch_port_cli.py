@@ -12,7 +12,8 @@
   the TreeSatAI fixture: ``convert_dataset --check`` -> ``port_checkpoint`` ->
   ``run.eval_only`` -> probe + finetune -> ``predict``, whose files equal
   ``serve.make_predict_fn`` on the same batches with the EMA weights;
-  ``--quantize`` refused by name.
+  ``predict --quantize=int8`` against the int8 model on the same batches
+  (another scheme refused).
 * ``convert_dataset``'s mirrors bit-equal to the JAX package's script's on a
   FLAIR-HUB GeoTIFF fixture.
 """
@@ -190,8 +191,36 @@ def test_day_one_runbook(tmp_path):
 
 
 def test_predict_refuses_quantize(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        predict.main([str(tmp_path), "--quantize=int8", "model.model_size=micro"])
+    """``--quantize=int8`` writes the int8 model's predictions (those of
+    ``quant.quantize_params`` through ``make_quant_predict_fn`` on the same
+    batches), another scheme is refused, and the card is the default."""
+    root = tmp_path / "treesat"
+    write_treesat_fixture(root, num_tiles=2)
+    common = ["datasets.name_dataset=treesatai_ts", f"datasets.root_dir={root}",
+              "datasets.treesatai_ts.rel_dir=", "model.model_size=micro",
+              "model.fusion_mode=group", "model.inter_depth=1", "data.loader=threads",
+              "data.num_workers=2", "trainer.compute_dtype=float32"]
+    cfg, datasets = tmain.parse_cli(common)
+    from maestro_tpu_torch.models.factory import build_experiment_model
+    from maestro_tpu_torch.quant import make_quant_predict_fn, quantize_params
+
+    model, _, _ = build_experiment_model(datasets, cfg, device="cpu")
+    weights = ckpt.save_weights(tmp_path / "ckpt", "finetune", 1, dict(model.named_parameters()))
+    out, head = tmp_path / "preds", "treesat_mlc_thresh"
+    manifest = predict.main([str(out), *common, f"run.load_ckpt_path={weights}",
+                             "--split=test", "--batch-size=1", "--probs", "--quantize=int8",
+                             "--device=cpu"])
+    assert manifest["quantize"] == "int8" and manifest["tiles"] == {head: 2}
+    probs = np.load(out / head / "probs.npy")
+    _, loader = make_loader(datasets, cfg.data, "test", "finetune", 1, seed=cfg.run.seed)
+    loader.shuffle, loader.drop_last = False, False
+    batches = list(loader)
+    fns = {"int8": make_quant_predict_fn(quantize_params(model)), "fp": make_predict_fn(model)}
+    want = {k: np.concatenate([torch.sigmoid(fn(b)[head].float()).numpy() for b in batches])
+            for k, fn in fns.items()}
+    np.testing.assert_allclose(probs, want["int8"], rtol=1e-6, atol=1e-7)
+    assert not np.array_equal(probs, want["fp"])
+
     with pytest.raises(SystemExit, match="int8"):
         predict.main([str(tmp_path), "--quantize=fp8"])
     with pytest.raises(RuntimeError, match="device='cpu'"):  # the card unless asked

@@ -46,6 +46,7 @@ import maestro_tpu_torch.conf as TC
 import maestro_tpu_torch.train.runtime as TR
 from maestro_tpu_torch import main as tmain
 from maestro_tpu_torch.ops import masking as TMK
+from maestro_tpu_torch.scripts import export_model
 from maestro_tpu_torch.port.from_jax import load_jax_params
 from maestro_tpu_torch.train import checkpoint as ckpt
 from maestro_tpu_torch.train import preempt
@@ -521,6 +522,8 @@ def test_entry_points_default_to_cuda(tmp_path):
         TR.Experiment(cfg, datasets, tmp_path / "w")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmain.main([f"run.exp_dir={tmp_path}", "model.model_size=micro"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export_model.main([str(tmp_path / "model.pt2"), "model.model_size=micro"])
     assert not list(tmp_path.iterdir())  # nothing was written
 
 
